@@ -44,9 +44,14 @@ BUILD_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Tile heights of the fp32 kernels, tallest first, and the SMs of an H100.
+TILE_ROWS = (128, 64, 32)
+H100_SMS = 132
+
 LAUNCHES = {"gdn_f32": 0, "igdn_f32": 0, "gdn_bf16": 0, "igdn_bf16": 0,
             "gdn_quantize_f32": 0, "igdn_quantize_f32": 0}
 _lib = None
+_sm_counts = {}
 
 
 def reset_launch_counts():
@@ -93,12 +98,15 @@ def load_library():
             or os.path.getmtime(LIB_PATH) < os.path.getmtime(_SOURCE)):
         build_library()
     lib = ctypes.CDLL(LIB_PATH)
-    args = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    for name in ("aeic_gdn_f32", "aeic_gdn_bf16"):
-        getattr(lib, name).argtypes = args
+    pointers = [ctypes.c_void_p] * 4
+    rows_inverse = [ctypes.c_int64, ctypes.c_int]
+    (tile, stream) = ([ctypes.c_int], [ctypes.c_void_p])
+    lib.aeic_gdn_f32.argtypes = pointers + rows_inverse + tile + stream
+    lib.aeic_gdn_bf16.argtypes = pointers + rows_inverse + stream
+    lib.aeic_gdn_quantize_f32.argtypes = (
+        [ctypes.c_void_p] + pointers + rows_inverse + tile + stream)
+    for name in ("aeic_gdn_f32", "aeic_gdn_bf16", "aeic_gdn_quantize_f32"):
         getattr(lib, name).restype = ctypes.c_int
-    lib.aeic_gdn_quantize_f32.argtypes = [ctypes.c_void_p] + args
-    lib.aeic_gdn_quantize_f32.restype = ctypes.c_int
     lib.aeic_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aeic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -131,9 +139,31 @@ def _check_operands(x, gamma, beta, dtypes):
         raise ValueError("expected gamma (128, 128) and beta (128,).")
 
 
+def tile_rows(rows, sms=H100_SMS):
+    """Tile height of the fp32 kernels for a row count.
+
+    The blocks are persistent, about one to an SM, so the busiest SM
+    works through ``ceil(tiles / sms)`` tiles. Take the height that
+    gives it the fewest rows, and of equals the tallest, which reuses
+    the most of what it loads.
+    """
+    def busiest(height):
+        tiles = -(-rows // height)
+        return -(-tiles // sms) * height
+
+    return min(TILE_ROWS, key=busiest)  # TILE_ROWS is tallest first
+
+
+def _sm_count(device):
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
+
+
 def _cuda_operands(x, *params):
-    """fp32 contiguous copies of the parameters on ``x``'s device (no
-    copy when they already are), after the checks the kernel needs."""
+    """The parameters as fp32 contiguous tensors on ``x``'s device (the
+    tensors themselves when they already are, as on every path of this
+    package), after the checks the kernel needs."""
     if x.device.type != "cuda":
         raise ValueError(f"the GDN kernels run on CUDA or CPU tensors, got {x.device}.")
     if not x.is_contiguous():
@@ -142,7 +172,11 @@ def _cuda_operands(x, *params):
     for param in params:
         if param.device != x.device:
             raise ValueError(f"parameter on {param.device}, x on {x.device}.")
-        out.append(param.to(torch.float32).contiguous())
+        if param.dtype != torch.float32 or not param.is_contiguous():
+            param = param.to(torch.float32).contiguous()
+        out.append(param)
+    if any(t.data_ptr() % 16 for t in (x, *out)):
+        raise ValueError("the GDN kernels need 16-byte aligned x and parameters.")
     return out
 
 
@@ -164,12 +198,15 @@ def gdn_2d(x, gamma, beta, inverse=False):
     (gamma, beta) = _cuda_operands(x, gamma, beta)
     out = torch.empty_like(x)
     lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), x.shape[0],
+            int(inverse))
     if x.dtype == torch.float32:
-        (fn, variant) = (lib.aeic_gdn_f32, "f32")
+        variant = "f32"
+        status = lib.aeic_gdn_f32(*args, tile_rows(x.shape[0], _sm_count(x.device)), stream)
     else:
-        (fn, variant) = (lib.aeic_gdn_bf16, "bf16")
-    status = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-                x.shape[0], int(inverse), torch.cuda.current_stream(x.device).cuda_stream)
+        variant = "bf16"
+        status = lib.aeic_gdn_bf16(*args, stream)
     _raise_on_status(lib, status, "gdn_2d")
     LAUNCHES[("igdn_" if inverse else "gdn_") + variant] += 1
     return out
@@ -192,6 +229,7 @@ def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
     status = lib.aeic_gdn_quantize_f32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bin_widths.data_ptr(),
         out.data_ptr(), x.shape[0], int(inverse),
+        tile_rows(x.shape[0], _sm_count(x.device)),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_status(lib, status, "gdn_quantize_2d")
     LAUNCHES["igdn_quantize_f32" if inverse else "gdn_quantize_f32"] += 1

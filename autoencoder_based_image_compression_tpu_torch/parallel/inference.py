@@ -106,7 +106,8 @@ class PipelinedCompressor:
 
         ``fast_path``: None runs the fp32 transforms; "bf16w+" the
         serving engine's (fp32 analysis transform, bf16 synthesis
-        transform with an fp32 tconv_4 output, ``engine.BF16WPLUS_*``;
+        transform whose tconv_4 takes the latents unrounded and gives an
+        fp32 output, ``engine.BF16WPLUS_*``;
         learned-bin-width architecture only).
 
         ``reconstruct=False`` is the compress-only mode: no decode, and
@@ -118,6 +119,7 @@ class PipelinedCompressor:
         self.device = resolve_device(device)
         self._fp32_tail = 0
         self._fp32_head = False
+        self._exact_latents = False
         self._fp32_enc_tail = 0
         if fast_path is not None:
             if fast_path != "bf16w+":
@@ -128,6 +130,7 @@ class PipelinedCompressor:
                     "fast_path requires the learned-bin-width architecture.")
             self._fp32_tail = engine.BF16WPLUS_DEC_TAIL
             self._fp32_head = engine.BF16WPLUS_DEC_HEAD
+            self._exact_latents = engine.BF16WPLUS_DEC_EXACT_LATENTS
             self._fp32_enc_tail = engine.BF16WPLUS_ENC_TAIL
             params = engine.bf16_weight_params(
                 params, fp32_tail=self._fp32_tail,
@@ -178,7 +181,8 @@ class PipelinedCompressor:
         if self.fast_path is not None:
             reconstruction = engine.fast_decode(self.params, quantized,
                                                 fp32_tail=self._fp32_tail,
-                                                fp32_head=self._fp32_head)
+                                                fp32_head=self._fp32_head,
+                                                exact_latents=self._exact_latents)
         else:
             reconstruction = conv_eae.decode(self.params, quantized,
                                              self.learn_bin_widths)

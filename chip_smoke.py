@@ -15,7 +15,9 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
    and its statistics at multiplier 1, true bitstreams, verified;
-   fails if bf16w+'s worst image is more than 0.05 dB below fp32;
+   then the decoder's precision mixes at multipliers 1, 4 and 10 (the
+   gate table) and the device's own time per batch; fails if bf16w+'s
+   worst image is more than 0.05 dB below fp32 at any of the three;
 4. the fixed-bin-width ``roundtrip_batched`` (fused GDN+quantise);
 5. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 6. the result line ``{"ok": true, "device": {...}}``, last.
@@ -28,6 +30,7 @@ nothing of JAX.
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import time
@@ -42,11 +45,35 @@ FIXED = os.path.join(REPO, "results", "eae", "fixed_bw", "1_10000")
 KERNEL_SOURCE = "autoencoder_based_image_compression_tpu_torch/csrc/gdn.cu"
 TPU_KERNELS = "autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py"
 GATE_DB = 0.05
+GATE_MULTIPLIERS = (1.0, 4.0, 10.0)
+# The GDN launches of one batch on each serving path: (variant, shape).
+GDN_SITES = {
+    "bf16w+": (("gdn_f32", "H/4"), ("gdn_f32", "H/8"), ("igdn_f32", "H/8"),
+               ("igdn_bf16", "H/4")),
+    "fp32": (("gdn_f32", "H/4"), ("gdn_f32", "H/8"), ("igdn_f32", "H/8"),
+             ("igdn_f32", "H/4")),
+}
+# Decoder precision mixes of the gate table: (integer symbols into folded
+# parameters?, fast_decode's keywords).
+GATE_MIXES = {
+    "a: fp32 head, rounded latents": (False, dict(fp32_head=True)),
+    "b: folded integer symbols, tail 0 (the reference's measurement)": (True, dict()),
+    "b+: folded integer symbols, fp32 head": (True, dict(fp32_head=True)),
+    "c: fp32 head, exact latents (bf16w+)": (False, dict(fp32_head=True, exact_latents=True)),
+    "d: c + fp32 IGDN_6": (False, dict(fp32_head=True, exact_latents=True,
+                                        fp32_igdn6=True)),
+    "tail 0": (False, dict()), "tail 1": (False, dict(fp32_tail=1)),
+    "tail 2": (False, dict(fp32_tail=2)), "tail 3 (all fp32)": (False, dict(fp32_tail=3)),
+}
 BF16_ULP = 2.0 ** -7
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 (BATCH, HEIGHT, WIDTH) = (4, 512, 768)
+# Timed launches walk round this many bytes of inputs and outputs at least
+# (the L2 cache holds 50 MB), and the ragged check adds these rows to H/4.
+TIMING_FOOTPRINT_BYTES = 128 << 20
+RAGGED_EXTRA = 37
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256}
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
@@ -78,24 +105,57 @@ def build_all():
         for future in futures:
             future.result()
     print(f"built {KERNEL_SOURCE} and the coder in {time.perf_counter() - t0:.1f} s")
+    # ptxas report: kernel (template arguments as mangled: Li<RM>E, then
+    # Lb<inverse>E, Lb<quantise>E), registers, spills.
     with open(gdn_kernel.BUILD_LOG) as log:
-        for line in log:
-            if "Used" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        report = log.read()
+    for entry in report.split("Compiling entry function '")[1:]:
+        kernel = re.search(r"gdn_(?:f32|bf16)_kernelI\w+?E(?=Ev)", entry)
+        facts = [line.split(":")[-1].strip() for line in entry.splitlines()
+                 if "Used" in line or "spill" in line]
+        print(f"  ptxas {kernel.group(0) if kernel else '?'}: " + "; ".join(facts))
 
 
-def time_ms(fn, iters=50):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(5):
-        fn()
+def _median_ms(run, launches, repeats):
+    """Median over ``repeats`` of the device time of ``run()`` per launch."""
+    times = []
+    for _ in range(repeats):
+        (start, end) = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(numpy.median(times))
+
+
+def time_ms(fn, inputs, launches=24, repeats=7):
+    """Device time of one ``fn(x)`` in ms: ``(graph, eager)``.
+
+    ``graph`` replays a captured CUDA graph of ``launches`` calls, so no
+    host work (Python, ctypes, the allocator) sits between the kernels;
+    ``eager`` times the same calls made from Python back to back. Both
+    are the median of ``repeats``. The calls walk round ``inputs``
+    (copies of one matrix, more than the L2 cache holds together with
+    their outputs) and every output of a pass stays alive, so each launch
+    finds its operands in device memory, not in the cache.
+    """
+    def run():
+        return [fn(inputs[i % len(inputs)]) for i in range(launches)]
+
+    for _ in range(2):  # first use sets the kernels' attributes: not capturable
+        run()
     torch.cuda.synchronize()
-    (start, end) = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    eager = _median_ms(run, launches, repeats)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = _median_ms(graph.replay, launches, repeats)
+    del outputs, graph
+    return (replayed, eager)
 
 
 def bound(rows, dtype, quantize):
@@ -124,6 +184,31 @@ def kernel_inputs(name, rows, seed):
     return args
 
 
+def check_kernel(name, rows, got, expected, bin_widths):
+    """Holds a kernel's result against its plain version's at the
+    variant's tolerance; returns ``(max_abs, max_rel, tolerance, detail)``."""
+    (dtype, _, quantize, _, _, _) = VARIANTS[name]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} at {rows} rows: non-finite output")
+    diff = (got.float() - expected.float()).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / expected.float().abs().clamp_min(1e-30)).max())
+    if quantize:
+        flips = got != expected
+        flip_share = float(flips.float().mean())
+        bw = bin_widths.expand_as(got)
+        if flip_share > 1e-4 or not torch.allclose(diff[flips], bw[flips], rtol=1e-6):
+            raise AssertionError(f"{name}: {flip_share} of the elements off by a bin")
+        return (max_abs, max_rel, "identical except ties (<= 1e-4, one bin each)",
+                f"tie flips {int(flips.sum())} of {flips.numel()}")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-6)
+        return (max_abs, max_rel, "rtol 1e-5, atol 1e-6", "")
+    if not bool((diff <= BF16_ULP * expected.float().abs()).all()):
+        raise AssertionError(f"{name} at {rows} rows: more than 1 bf16 ulp off")
+    return (max_abs, max_rel, "1 bf16 ulp (rtol 2^-7)", "")
+
+
 def phase_kernels():
     """Each variant against its plain version; returns errors and times."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
@@ -132,40 +217,34 @@ def phase_kernels():
     for (seed, (name, (dtype, inverse, quantize, _, shapes, _))) in enumerate(VARIANTS.items()):
         kernel = gk.gdn_quantize_2d if quantize else gk.gdn_2d
         plain = gk.gdn_quantize_2d_plain if quantize else gk.gdn_2d_plain
-        for shape in shapes:
-            rows = ROWS[shape]
-            args = kernel_inputs(name, rows, seed)
-            got = kernel(*args, inverse=inverse)
-            expected = plain(*args, inverse=inverse)
+        # A ragged row count first (the last tile is masked), then the
+        # main path's shapes, which are also timed.
+        for shape in ("ragged",) + shapes:
+            rows = ROWS["H/4"] + RAGGED_EXTRA if shape == "ragged" else ROWS[shape]
+            (x, *params) = kernel_inputs(name, rows, seed)
+            got = kernel(x, *params, inverse=inverse)
+            expected = plain(x, *params, inverse=inverse)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"{name} at {rows} rows: non-finite output")
-            diff = (got.float() - expected.float()).abs()
-            max_abs = float(diff.max())
-            max_rel = float((diff / expected.float().abs().clamp_min(1e-30)).max())
-            if quantize:
-                flips = got != expected
-                flip_share = float(flips.float().mean())
-                bw = args[3].expand_as(got)
-                if flip_share > 1e-4 or not torch.allclose(diff[flips], bw[flips], rtol=1e-6):
-                    raise AssertionError(f"{name}: {flip_share} of the elements off by a bin")
-                detail = f"tie flips {int(flips.sum())} of {flips.numel()}"
-                tolerance = "identical except ties (<= 1e-4, one bin each)"
-            elif dtype == torch.float32:
-                torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-6)
-                (detail, tolerance) = ("", "rtol 1e-5, atol 1e-6")
-            else:
-                if not bool((diff <= BF16_ULP * expected.float().abs()).all()):
-                    raise AssertionError(f"{name} at {rows} rows: more than 1 bf16 ulp off")
-                (detail, tolerance) = ("", "1 bf16 ulp (rtol 2^-7)")
-            ms = time_ms(lambda: kernel(*args, inverse=inverse))
-            plain_ms = time_ms(lambda: plain(*args, inverse=inverse))
+            (max_abs, max_rel, tolerance, detail) = check_kernel(
+                name, rows, got, expected, params[-1])
+            head = (f"  {name:17s} rows {rows:6d} ({shape:6s}): max abs err {max_abs:.3e}, "
+                    f"max rel err {max_rel:.3e} [{tolerance}] {detail}")
+            if shape == "ragged":
+                print(head)
+                continue
+            del got, expected
+            nbytes = 2 * x.numel() * x.element_size()
+            inputs = [x] + [x.clone() for _ in range(TIMING_FOOTPRINT_BYTES // nbytes)]
+            (ms, ms_eager) = time_ms(lambda t: kernel(t, *params, inverse=inverse), inputs)
+            (plain_ms, _) = time_ms(lambda t: plain(t, *params, inverse=inverse), inputs)
             (bound_ms, bound_by) = bound(rows, dtype, quantize)
-            results[(name, shape)] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bound_ms, bound_by=bound_by)
-            print(f"  {name:17s} rows {rows:6d} ({shape:4s}): max abs err {max_abs:.3e}, "
-                  f"max rel err {max_rel:.3e} [{tolerance}] {detail}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by})")
+            results[(name, shape)] = dict(max_abs_err=max_abs, ms=ms, ms_eager=ms_eager,
+                                          plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by)
+            print(f"{head}; tile {gk.tile_rows(rows) if dtype == torch.float32 else 16}; "
+                  f"kernel {ms:.4f} ms replayed, {ms_eager:.4f} ms eager, "
+                  f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+                  f"share of bound {100 * bound_ms / ms:.0f} %")
     return results
 
 
@@ -192,8 +271,9 @@ def expect_launches(path, counts, expected):
         raise AssertionError(f"{path}: launches {got}, expected {expected}")
 
 
-def phase_serving():
+def phase_serving(kernel_results):
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
+    from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
@@ -240,6 +320,8 @@ def phase_serving():
               f"{images[..., 0].size / timing['wall'] / 1e6:.3f} Mpix/s end to end, "
               f"last_timing {json.dumps(timing)}, peak_in_flight {compressor.peak_in_flight}")
         runs[tag] = (psnrs, bits, launches)
+        device_times(compressor, images[:BATCH], timing["coder"] / nb_batches, kernel_results,
+                     GDN_SITES[tag])
     expect_launches("serving bf16w+", runs["bf16w+"][2],
                     {"gdn_f32": 2 * nb_batches, "igdn_f32": nb_batches,
                      "igdn_bf16": nb_batches})
@@ -247,19 +329,55 @@ def phase_serving():
                     {"gdn_f32": 2 * nb_batches, "igdn_f32": 2 * nb_batches})
     deltas = runs["bf16w+"][0] - runs["fp32"][0]
     rate_gap = abs(int(runs["bf16w+"][1].sum()) - int(runs["fp32"][1].sum()))
-    print(f"  bf16w+ vs fp32: worst-image PSNR delta {deltas.min():+.4f} dB "
-          f"(gate -{GATE_DB} dB), max |delta| {numpy.abs(deltas).max():.4f} dB, "
+    print(f"  bf16w+ vs fp32 through the pipeline at x1: worst-image PSNR delta "
+          f"{deltas.min():+.4f} dB (gate -{GATE_DB} dB), max |delta| "
+          f"{numpy.abs(deltas).max():.4f} dB, "
           f"total bits differ by {rate_gap / int(runs['fp32'][1].sum()):.3e}")
     if deltas.min() < -GATE_DB:
         raise AssertionError(f"bf16w+ misses the {GATE_DB} dB gate: {deltas.min():+.4f} dB")
-    gate_table(params, bin_widths, map_mean, images)
+    table = gate_table(params, bin_widths, map_mean, images)
+    # The row of the mix that PipelinedCompressor serves with.
+    serving = {key: value for (key, value) in dict(
+        fp32_tail=engine.BF16WPLUS_DEC_TAIL, fp32_head=engine.BF16WPLUS_DEC_HEAD,
+        exact_latents=engine.BF16WPLUS_DEC_EXACT_LATENTS).items() if value}
+    (label,) = [label for (label, (folded, mix)) in GATE_MIXES.items()
+                if not folded and mix == serving]
+    for (multiplier, delta) in table[label].items():
+        if not delta >= -GATE_DB:
+            raise AssertionError(f"bf16w+ misses the {GATE_DB} dB gate at x{multiplier:g}: "
+                                 f"{delta:+.4f} dB")
+    print(f"  bf16w+ ({label}) holds the {GATE_DB} dB gate at x1, x4 and x10")
     return {"serving bf16w+": runs["bf16w+"][2], "serving fp32": runs["fp32"][2]}
+
+
+def device_times(compressor, batch_uint8, coder_s, kernel_results, sites, repeats=5):
+    """Device time of one batch's encode and decode (CUDA events round
+    each, median of ``repeats``), GDN's share of it (the kernels' replayed
+    times at the path's ``sites``) and the coder's host time per batch."""
+    batch = torch.from_numpy(batch_uint8).cuda()
+    (sym16, _, _) = compressor.encode_symbols(batch)
+    compressor.decode_symbols(sym16)
+    torch.cuda.synchronize()
+    encode_ms = _median_ms(lambda: compressor.encode_symbols(batch), 1, repeats)
+    decode_ms = _median_ms(lambda: compressor.decode_symbols(sym16), 1, repeats)
+    gdn_ms = sum(kernel_results[site]["ms"] for site in sites)
+    device_ms = encode_ms + decode_ms
+    print(f"  device time per batch, {compressor.fast_path or 'fp32'}: encode "
+          f"{encode_ms:.4f} ms, decode {decode_ms:.4f} ms, GDN kernels {gdn_ms:.4f} ms "
+          f"({100 * gdn_ms / device_ms:.1f} % of {device_ms:.4f} ms); coder on the host "
+          f"{1e3 * coder_s:.3f} ms per batch ({1e3 * coder_s / device_ms:.1f}x the device)")
 
 
 def gate_table(params, bin_widths, map_mean, images):
     """Worst-image PSNR delta against the fp32 decode for the decoder's
     precision mixes at multipliers 1, 4 and 10 (symbols from the fp32
-    encoder). Printed for the record; the gate itself is checked above."""
+    encoder). Returns ``{label: {multiplier: worst delta}}``.
+
+    The "folded" rows are the reference's own gate measurement: integer
+    symbols ``round(y / bw)`` (no map means) into a decoder whose first
+    kernel holds the bin widths, against the fp32 decode of ``sym * bw``.
+    The other rows are the pipeline's call on ``sym * bw + mean``.
+    """
     from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
@@ -270,25 +388,31 @@ def gate_table(params, bin_widths, map_mean, images):
     batches = [torch.from_numpy(images[i:i + BATCH].astype(numpy.float32)).cuda()
                for i in range(0, images.shape[0], BATCH)]
     latents = [conv_eae.encode(params, batch, True) for batch in batches]
-    mixes = {"bf16w+ (tail 0, fp32 head)": (0, True), "tail 0": (0, False),
-             "tail 1": (1, False), "tail 2": (2, False), "tail 3": (3, False)}
 
-    def psnrs(decode):
-        recs = numpy.concatenate([cast_bt601(decode(y)).cpu().numpy() for y in quantized])
+    def psnrs(decode, inputs):
+        recs = numpy.concatenate([cast_bt601(decode(y)).cpu().numpy() for y in inputs])
         return numpy.array([psnr_2d(images[i, :, :, 0], recs[i, :, :, 0])
                             for i in range(images.shape[0])])
 
-    for multiplier in (1.0, 4.0, 10.0):
+    table = {label: {} for label in GATE_MIXES}
+    for multiplier in GATE_MULTIPLIERS:
         bw = torch.from_numpy(bin_widths * multiplier).cuda()
+        symbols = [torch.round(y / bw) for y in latents]
         quantized = [torch.round((y - mean) / bw) * bw + mean for y in latents]
-        reference = psnrs(lambda y: conv_eae.decode(params, y, True))
-        row = []
-        for (label, (tail, head)) in mixes.items():
-            qp = engine.bf16_weight_params(params, fp32_tail=tail)
-            delta = psnrs(lambda y: engine.fast_decode(qp, y, fp32_tail=tail,
-                                                       fp32_head=head)) - reference
-            row.append(f"{label} {delta.min():+.4f}")
-        print(f"  gate table x{multiplier:g} (worst-image delta, dB): " + "; ".join(row))
+        fp32_decode = lambda y: conv_eae.decode(params, y, True)  # noqa: E731
+        reference = {False: psnrs(fp32_decode, quantized),
+                     True: psnrs(fp32_decode, [sym * bw for sym in symbols])}
+        folded_params = engine.fold_bin_widths_into_decoder(params, bw)
+        for (label, (folded, mix)) in GATE_MIXES.items():
+            qp = engine.bf16_weight_params(folded_params if folded else params,
+                                           fp32_tail=mix.get("fp32_tail", 0))
+            got = psnrs(lambda y: engine.fast_decode(qp, y, **mix),
+                        symbols if folded else quantized)
+            table[label][multiplier] = float((got - reference[folded]).min())
+    for (label, row) in table.items():
+        print(f"  gate table, worst-image delta (dB), {label}: "
+              + "; ".join(f"x{m:g} {d:+.4f}" for (m, d) in row.items()))
+    return table
 
 
 def phase_fixed_bw():
@@ -351,7 +475,7 @@ def main():
     print("phase 2: kernels against their plain versions")
     kernel_results = phase_kernels()
     print("phase 3: serving (PipelinedCompressor)")
-    path_launches = phase_serving()
+    path_launches = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
     path_launches.update(phase_fixed_bw())
 
@@ -370,8 +494,8 @@ def main():
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": f"{TPU_KERNELS}:{VARIANTS[name][5]}", "launches": launches,
             "max_abs_err": result["max_abs_err"], "ms": result["ms"],
-            "plain_ms": result["plain_ms"], "bound_ms": result["bound_ms"],
-            "bound_by": result["bound_by"], "library_ms": None,
+            "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
+            "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
             "path": path, "rows": ROWS[shape]})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -170,13 +170,30 @@ def test_cpu_tensors_never_launch():
     assert sum(gdn_kernel.LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("rows,height", [(98304, 128), (24576, 64), (6144, 64),
+                                         (98304 + 37, 128), (1007, 32), (1, 32)])
+def test_tile_rows_for_the_main_path_shapes(rows, height):
+    # 4 x 512 x 768 at H/4, H/8, H/16 on 132 SMs: 768 tiles of 128 rows
+    # (6 to the busiest SM), 384 of 64 (3), 96 of 64 (1, as few rows as 2
+    # of 32 and faster on the card).
+    assert gdn_kernel.tile_rows(rows) == height
+    assert gdn_kernel.tile_rows(rows, sms=132) == height
+    assert height in gdn_kernel.TILE_ROWS
+
+
+# A small ragged row count, and the H/4 shape of a 4 x 512 x 768 batch
+# plus a ragged tail.
+CUDA_ROWS = [1000 + 7, 98304 + 37]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", CUDA_ROWS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_cuda_gdn_kernel_matches_plain(dtype, inverse):
+def test_cuda_gdn_kernel_matches_plain(dtype, inverse, rows):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; chip_smoke.py runs this check on the card)")
-    (x, gamma, beta) = [t.cuda() for t in _t(*_inputs(1000 + 7, 3, (LEARNED, 1)))]
+    (x, gamma, beta) = [t.cuda() for t in _t(*_inputs(rows, 3, (LEARNED, 1)))]
     x = x.to(getattr(torch, dtype))
     before = dict(gdn_kernel.LAUNCHES)
     got = gdn_2d(x, gamma, beta, inverse=inverse)
@@ -191,10 +208,12 @@ def test_cuda_gdn_kernel_matches_plain(dtype, inverse):
 
 
 @pytest.mark.cuda
-def test_cuda_gdn_quantize_kernel_matches_plain():
+@pytest.mark.parametrize("rows", CUDA_ROWS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cuda_gdn_quantize_kernel_matches_plain(inverse, rows):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; chip_smoke.py runs this check on the card)")
-    (x, gamma, beta, bin_widths) = [t.cuda() for t in _t(*_quantize_case(1000 + 7, 4))]
-    got = gdn_quantize_2d(x, gamma, beta, bin_widths)
-    expected = gdn_kernel.gdn_quantize_2d_plain(x, gamma, beta, bin_widths)
+    (x, gamma, beta, bin_widths) = [t.cuda() for t in _t(*_quantize_case(rows, 4))]
+    got = gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=inverse)
+    expected = gdn_kernel.gdn_quantize_2d_plain(x, gamma, beta, bin_widths, inverse)
     assert float((got != expected).float().mean()) <= 1e-4

@@ -175,3 +175,92 @@ def test_fp32_head_brings_decode_closer_to_fp32():
     # The bf16 rounding of tconv_4's output is the decoder's largest
     # error site: keeping it fp32 moves the decode towards fp32.
     assert psnrs[True] > psnrs[False]
+
+
+def test_fold_bin_widths_into_decoder_matches_jax():
+    (params_jax, params, bin_widths, _) = _models(True)
+    for multiplier in (1.0, 10.0):
+        bw = (bin_widths * multiplier).astype(numpy.float32)
+        expected = jax_engine.fold_bin_widths_into_decoder(params_jax, bw)
+        got = engine.fold_bin_widths_into_decoder(params, bw)
+        assert set(got) == set(expected)
+        # JAX keeps weights_4 as (kh, kw, out, in), the port as
+        # (in, out, kh, kw): one fp32 product per element on both sides.
+        numpy.testing.assert_allclose(
+            got["weights_4"].numpy(),
+            numpy.asarray(expected["weights_4"]).transpose(3, 2, 0, 1), rtol=1e-6)
+        for name in ("weights_5", "weights_6", "gamma_5", "biases_4"):
+            assert got[name] is params[name]
+    # Linear in the symbols: folding then decoding integer symbols equals
+    # decoding the dequantised symbols (fp32; only the order of the
+    # products differs).
+    y = conv_eae.encode(params, torch.from_numpy(_images()), True)
+    symbols = torch.round(y / torch.tensor(bin_widths))
+    torch.testing.assert_close(
+        conv_eae.decode(engine.fold_bin_widths_into_decoder(params, bin_widths),
+                        symbols, True),
+        conv_eae.decode(params, symbols * torch.tensor(bin_widths), True),
+        rtol=1e-5, atol=1e-3)
+
+
+def test_fold_bin_widths_into_decoder_refuses_fixed_bin_widths():
+    (params_jax, params, bin_widths, _) = _models(False)
+    assert "gamma_4" in params
+    with pytest.raises(ValueError, match="learned-bin-width"):
+        engine.fold_bin_widths_into_decoder(params, bin_widths)
+    with pytest.raises(ValueError, match="learned-bin-width"):
+        jax_engine.fold_bin_widths_into_decoder(params_jax, bin_widths)
+
+
+@pytest.mark.parametrize("fp32_tail", [0, 3])
+def test_folded_symbol_decode_matches_jax(fp32_tail):
+    (params_jax, params, bin_widths, _) = _models(True)
+    y = numpy.asarray(jax_eae.encode(params_jax, jnp.asarray(_images()), True))
+    symbols = numpy.round(y / bin_widths).astype(numpy.float32)
+    qp_jax = jax_engine.bf16_weight_params(
+        jax_engine.fold_bin_widths_into_decoder(params_jax, bin_widths),
+        fp32_tail=fp32_tail)
+    qp = engine.bf16_weight_params(
+        engine.fold_bin_widths_into_decoder(params, bin_widths), fp32_tail=fp32_tail)
+    expected = numpy.asarray(jax_engine.fast_decode(qp_jax, jnp.asarray(symbols),
+                                                    fp32_tail=fp32_tail))
+    got = engine.fast_decode(qp, torch.from_numpy(symbols), fp32_tail=fp32_tail).numpy()
+    assert got.shape == expected.shape == (2, 64, 96, 1)
+    if fp32_tail == 3:
+        # All fp32 on both sides: the fp32 decode's tolerance.
+        numpy.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-3)
+        return
+    (got, expected) = (cast_bt601(got), numpy.asarray(jax_cast_bt601(expected)))
+    psnrs = [psnr_2d(expected[i, :, :, 0], got[i, :, :, 0])
+             if not numpy.array_equal(expected[i], got[i]) else 99.0 for i in range(2)]
+    within_one = float(numpy.mean(numpy.abs(got.astype(int) - expected.astype(int)) <= 1))
+    print("psnr_vs_jax_db", min(psnrs))
+    print("share_within_1_level", within_one)
+    # The same bf16 rounding sites as test_bf16wplus_decode_matches_jax,
+    # and the same bounds (measured here: 59.19 dB, all within one level).
+    assert min(psnrs) >= 50.0
+    assert within_one >= 0.999
+
+
+@pytest.mark.parametrize("multiplier", [1.0, 4.0, 10.0])
+def test_bf16wplus_mix_inside_gate_against_fp32_decode(multiplier):
+    (_, params, bin_widths, map_mean) = _models(True)
+    images = synthetic_luminance_stack(4, 128, 192, seed=11)
+    y = conv_eae.encode(params, torch.from_numpy(images.astype(numpy.float32)), True)
+    bw = torch.from_numpy((bin_widths * multiplier).astype(numpy.float32))
+    mean = torch.from_numpy(map_mean)
+    latents = torch.round((y - mean) / bw) * bw + mean
+    reference = cast_bt601(conv_eae.decode(params, latents, True)).numpy()
+    qp = engine.bf16_weight_params(params, fp32_tail=engine.BF16WPLUS_DEC_TAIL)
+    got = cast_bt601(engine.fast_decode(
+        qp, latents, fp32_tail=engine.BF16WPLUS_DEC_TAIL,
+        fp32_head=engine.BF16WPLUS_DEC_HEAD,
+        exact_latents=engine.BF16WPLUS_DEC_EXACT_LATENTS)).numpy()
+    deltas = [psnr_2d(images[i, :, :, 0], got[i, :, :, 0])
+              - psnr_2d(images[i, :, :, 0], reference[i, :, :, 0]) for i in range(4)]
+    print("worst_image_delta_db", min(deltas))
+    # The serving gate: the worst image at most 0.05 dB under the fp32
+    # decode. Measured on these crops on the CPU: +0.0100 dB at x1,
+    # +0.0018 at x4, -0.0241 at x10 (small crops move more than the
+    # 512 x 768 images of the on-card check).
+    assert min(deltas) >= -0.05
