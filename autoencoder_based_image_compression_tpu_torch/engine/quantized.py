@@ -35,9 +35,6 @@ from autoencoder_based_image_compression_tpu_torch.models.conv_eae import same_p
 from autoencoder_based_image_compression_tpu_torch.ops.kernels.gdn_kernel import gdn_nhwc
 from autoencoder_based_image_compression_tpu_torch.utils.device import disable_tf32
 
-CONV_NAMES = ("weights_1", "weights_2", "weights_3", "weights_4", "weights_5",
-              "weights_6")
-
 # The "bf16w+" serving default: a full-fp32 analysis transform over a
 # bf16 synthesis transform. On the card every fp32 conv runs true fp32,
 # so the reference's encoder precision choice ("high") has no
@@ -87,7 +84,7 @@ def bf16_weight_params(params, fp32_tail=0, fp32_enc_tail=0):
     the same levels to :func:`fast_encode` / :func:`fast_decode`."""
     keep = _fp32_tail_names(fp32_tail) | _fp32_enc_tail_names(fp32_enc_tail)
     return {name: (value.to(_BF16)
-                   if name in CONV_NAMES and name not in keep else value)
+                   if name in csts.CONV_NAMES and name not in keep else value)
             for (name, value) in params.items()}
 
 

@@ -44,3 +44,17 @@ def gdn_lowp(x, gamma, beta, inverse=False):
     pool = torch.matmul(squares, gamma.to(x.dtype).to(torch.float32)) + beta
     scale = torch.sqrt(pool) if inverse else torch.rsqrt(pool)
     return (x.to(torch.float32) * scale).to(x.dtype)
+
+
+def init_gdn_gamma(generator, nb_maps, min_gamma=2.0e-5, max_gamma=0.01):
+    """Symmetric uniform init of the GDN weights: U(min_gamma, max_gamma),
+    then symmetrised. Drawn from ``generator`` on its device.
+
+    Raises ``ValueError`` if ``min_gamma`` does not belong to ]0., 0.01].
+    """
+    if min_gamma > 0.01 or min_gamma <= 0.0:
+        raise ValueError("`min_gamma` does not belong to ]0., 0.01].")
+    raw = torch.rand((nb_maps, nb_maps), generator=generator, device=generator.device,
+                     dtype=torch.float32)
+    raw = min_gamma + (max_gamma - min_gamma) * raw
+    return 0.5 * (raw + raw.t())

@@ -12,8 +12,16 @@ takes a ``(rows, 128)`` matrix: for a CPU tensor it runs the plain
 PyTorch version below; for a CUDA tensor it launches the kernel on the
 current stream or raises. Nothing falls back.
 
-``LAUNCHES`` counts the kernel launches per variant, so a run can show
-that its path went through the kernels.
+The fp32 kernel is differentiable: :class:`GdnFunction` runs it as the
+forward and computes the gradient in plain PyTorch (the reference has no
+backward kernel either: its training differentiates the plain einsum).
+:func:`gdn_2d` goes through it whenever an operand requires grad. What
+is never differentiated in the reference raises here: a bf16 input or
+the fused quantiser with an operand that requires grad. No call returns
+a detached result quietly.
+
+``LAUNCHES`` counts the forward kernel launches per variant, so a run
+can show that its path went through the kernels.
 """
 
 import ctypes
@@ -186,13 +194,8 @@ def _raise_on_status(lib, status, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {status} ({message}).")
 
 
-def gdn_2d(x, gamma, beta, inverse=False):
-    """GDN (or IGDN) on a ``(rows, 128)`` fp32 or bf16 matrix.
-
-    Counterpart of ``gdn_pallas_2d``: gamma is rounded to x's dtype,
-    beta stays fp32, the output has x's dtype.
-    """
-    _check_operands(x, gamma, beta, (torch.float32, torch.bfloat16))
+def _gdn_2d_forward(x, gamma, beta, inverse):
+    """Plain version for a CPU tensor, one kernel launch for a CUDA one."""
     if x.device.type == "cpu":
         return gdn_2d_plain(x, gamma, beta, inverse)
     (gamma, beta) = _cuda_operands(x, gamma, beta)
@@ -212,15 +215,84 @@ def gdn_2d(x, gamma, beta, inverse=False):
     return out
 
 
+class GdnFunction(torch.autograd.Function):
+    """Differentiable GDN/IGDN on a ``(rows, C)`` matrix.
+
+    Forward: the kernel on the card, the plain version on the CPU.
+    Backward, in plain PyTorch: with ``pool = x^2 @ gamma + beta``,
+    ``g`` the incoming gradient and ``t = dL/dpool``
+    (GDN: ``-0.5 * g * x * pool^-1.5``; IGDN: ``0.5 * g * x * pool^-0.5``),
+
+        grad_x     = g * scale + 2 * x * (t @ gamma.T)
+        grad_gamma = (x^2).T @ t
+        grad_beta  = t.sum(0)
+
+    where ``scale`` is ``pool^-0.5`` (GDN) or ``pool^0.5`` (IGDN). The
+    pool is computed again in the backward, so the forward saves only
+    its inputs.
+    """
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, inverse):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+        return _gdn_2d_forward(x, gamma, beta, inverse)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x, gamma, beta) = ctx.saved_tensors
+        pool = torch.matmul(torch.square(x), gamma) + beta
+        if ctx.inverse:
+            scale = torch.sqrt(pool)
+            grad_pool = 0.5 * grad_out * x / scale
+        else:
+            scale = torch.rsqrt(pool)
+            grad_pool = -0.5 * grad_out * x * scale / pool
+        (grad_x, grad_gamma, grad_beta) = (None, None, None)
+        if ctx.needs_input_grad[0]:
+            grad_x = grad_out * scale + 2.0 * x * torch.matmul(grad_pool, gamma.t())
+        if ctx.needs_input_grad[1]:
+            grad_gamma = torch.matmul(torch.square(x).t(), grad_pool)
+        if ctx.needs_input_grad[2]:
+            grad_beta = grad_pool.sum(0)
+        return (grad_x, grad_gamma, grad_beta, None)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def gdn_2d(x, gamma, beta, inverse=False):
+    """GDN (or IGDN) on a ``(rows, 128)`` fp32 or bf16 matrix.
+
+    Counterpart of ``gdn_pallas_2d``: gamma is rounded to x's dtype,
+    beta stays fp32, the output has x's dtype. When an operand requires
+    grad the fp32 call goes through :class:`GdnFunction`; a bf16 one
+    raises.
+    """
+    _check_operands(x, gamma, beta, (torch.float32, torch.bfloat16))
+    if _needs_grad(x, gamma, beta):
+        if x.dtype != torch.float32:
+            raise TypeError("gdn_2d is differentiable in fp32 only: a bf16 input "
+                            "with an operand that requires grad is refused.")
+        return GdnFunction.apply(x, gamma, beta, inverse)
+    return _gdn_2d_forward(x, gamma, beta, inverse)
+
+
 def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
     """Fused fp32 GDN/IGDN + per-channel quantiser on ``(rows, 128)``.
 
     Counterpart of ``gdn_quantize_pallas_2d``: returns
-    ``bw * round(gdn(x) / bw)``, rounding half to even.
+    ``bw * round(gdn(x) / bw)``, rounding half to even. Raises when an
+    operand requires grad.
     """
     _check_operands(x, gamma, beta, (torch.float32,))
     if tuple(bin_widths.shape) != (CHANNELS,):
         raise ValueError("expected bin_widths of shape (128,).")
+    if _needs_grad(x, gamma, beta, bin_widths):
+        raise RuntimeError("gdn_quantize_2d is not differentiable (the rounding has no "
+                           "gradient): an operand requires grad. Train through gdn_2d "
+                           "and additive noise.")
     if x.device.type == "cpu":
         return gdn_quantize_2d_plain(x, gamma, beta, bin_widths, inverse)
     (gamma, beta, bin_widths) = _cuda_operands(x, gamma, beta, bin_widths)

@@ -1,5 +1,6 @@
 """Host-side rate/distortion metrics (numpy, like the reference's
-``tools/tools.py``): symbol histograms, discrete entropy and PSNR."""
+``tools/tools.py``): symbol histograms, discrete entropy, PSNR, the
+training monitors and the Jensen-Shannon divergence."""
 
 import numpy
 
@@ -43,6 +44,50 @@ def discrete_entropy(quantized_samples, bin_width):
     if disc_entropy > numpy.log2(hist_non_zero.size):
         raise ValueError("The entropy is not smaller than its upper bound.")
     return disc_entropy
+
+
+def average_entropies(data, bin_widths):
+    """Quantises per map and averages the per-map discrete entropies.
+
+    Training monitor (reference ``tools/tools.py:25-59``).
+    """
+    data = numpy.asarray(data)
+    bin_widths = numpy.asarray(bin_widths)
+    quantized = bin_widths * numpy.round(data / bin_widths)
+    nb_maps = data.shape[-1]
+    cumulated = 0.0
+    for i in range(nb_maps):
+        cumulated += discrete_entropy(quantized[..., i], bin_widths[i].item())
+    return cumulated / nb_maps
+
+
+def convert_approx_entropy(scaled_approx_entropy, gamma_scaling, nb_maps):
+    """Mean form of the scaled cumulated approximate entropy
+    (reference ``tools/tools.py:265-292``)."""
+    return scaled_approx_entropy / (gamma_scaling * nb_maps)
+
+
+def jensen_shannon_divergence(probs_0, probs_1):
+    """Jensen-Shannon divergence between two discrete distributions.
+
+    Reference ``tools/tools.py:615-666`` with its validity checks; used
+    to pick the near-uniform exception map in the coding statistics.
+    """
+    probs_0 = numpy.asarray(probs_0, dtype=numpy.float64)
+    probs_1 = numpy.asarray(probs_1, dtype=numpy.float64)
+    for (name, probs) in (("probs_0", probs_0), ("probs_1", probs_1)):
+        if numpy.any(probs <= 0.0) or numpy.any(probs >= 1.0):
+            raise ValueError(f"A probability in `{name}` does not belong to ]0., 1.[.")
+        if abs(numpy.sum(probs).item() - 1.0) >= 1.0e-9:
+            raise ValueError(f"The probabilities in `{name}` do not sum to 1.0.")
+    denominator = 0.5 * (probs_0 + probs_1)
+    divergence = 0.5 * numpy.sum(
+        probs_0 * numpy.log2(probs_0 / denominator)
+        + probs_1 * numpy.log2(probs_1 / denominator)
+    )
+    if divergence < 0.0 or divergence > 1.0:
+        raise ValueError("The Jensen-Shannon divergence is out of [0., 1.].")
+    return divergence
 
 
 def psnr_2d(reference_uint8, reconstruction_uint8):

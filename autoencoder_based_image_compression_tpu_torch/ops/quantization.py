@@ -1,9 +1,10 @@
 """Uniform scalar quantisation and the output casts.
 
 Counterparts of the reference's ``tools/tools.py:883-929``
-(``quantize_per_map``), ``:61-93`` (``cast_bt601``) and ``:95-155``
-(``cast_float_to_int16``). ``torch.round`` rounds half to even, like
-``jnp.round`` and ``numpy.round``.
+(``quantize_per_map``), ``:61-93`` (``cast_bt601``), ``:95-155``
+(``cast_float_to_int16``) and ``tfutils/tfutils.py:8-43`` (``add_noise``).
+``torch.round`` rounds half to even, like ``jnp.round`` and
+``numpy.round``.
 """
 
 import numpy
@@ -18,6 +19,24 @@ def quantize_per_map(data, bin_widths):
     """
     bw = torch.as_tensor(bin_widths, dtype=data.dtype, device=data.device)
     return bw * torch.round(data / bw)
+
+
+def add_uniform_noise(noise, data, bin_widths):
+    """Adds per-channel zero-mean uniform noise U(-delta_i/2, delta_i/2):
+    the training-time differentiable stand-in for the quantiser.
+
+    ``noise`` is a ``torch.Generator`` on ``data``'s device, from which
+    U[-0.5, 0.5) of ``data``'s shape is drawn, or that noise itself as a
+    tensor (so that two implementations can be fed the same numbers).
+    ``data`` has shape ``(..., C)`` and ``bin_widths`` ``(C,)``.
+    """
+    if isinstance(noise, torch.Generator):
+        noise = torch.rand(data.shape, generator=noise, device=data.device,
+                           dtype=data.dtype) - 0.5
+    elif noise.shape != data.shape:
+        raise ValueError(f"noise of shape {tuple(noise.shape)} for data of shape "
+                         f"{tuple(data.shape)}.")
+    return data + bin_widths * noise
 
 
 def cast_bt601(array_float):

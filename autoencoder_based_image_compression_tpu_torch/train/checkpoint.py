@@ -1,15 +1,39 @@
-"""Trained-parameter artifacts and their conversion to PyTorch layouts.
+"""Checkpoints and params artifacts, in the reference's formats on disk.
 
-``params_trained.npz`` holds ``param:<name>`` arrays in the reference's
-layouts, ``bin_widths`` and ``step``. Loading is numpy-only;
-:func:`params_from_jax` carries the arrays into the port's layouts.
+A checkpoint is ``<path>.npz`` plus a ``<path>.json`` sidecar written
+last; a params artifact is one compressed ``params_trained.npz`` with
+``param:<name>`` arrays, ``bin_widths`` and ``step``. Both use the key
+scheme and the layouts of the reference package, so a file written by
+either package loads in the other:
+
+- a checkpoint's leaves are keyed by their path in the reference's
+  state, e.g. ``.params['gamma_1']``, ``.density.parameters``,
+  ``.opt_eae[0].mu['weights_1']``, ``.step``. The reference's optimiser
+  is a chain of two transformations that each count the updates
+  (``.opt_eae[0].count`` and ``.opt_eae[1].count``): this package keeps
+  one count and writes it under both keys;
+- conv kernels, *and their Adam moments*, are permuted back to the
+  reference's HWIO on save (:func:`params_to_jax`) and to this package's
+  layouts on load (:func:`params_from_jax`).
+
+Many leaves share a shape (all GDN gammas are (128, 128)), so a renamed,
+missing, extra or reshaped key raises at load instead of mapping onto
+another tensor. An existing checkpoint is not overwritten unless asked.
 """
+
+import json
+import os
 
 import numpy
 import torch
 
-CONV_NAMES = ("weights_1", "weights_2", "weights_3", "weights_4", "weights_5",
-              "weights_6")
+from autoencoder_based_image_compression_tpu_torch.constants import CONV_NAMES
+from autoencoder_based_image_compression_tpu_torch.ops.density import DensityTable
+from autoencoder_based_image_compression_tpu_torch.train.state import (
+    AdamState,
+    TrainState,
+    state_to,
+)
 
 
 def load_params_artifact(path_npz):
@@ -44,3 +68,192 @@ def params_from_jax(params_np):
             tensor = tensor.permute(3, 2, 0, 1).contiguous()
         params[name] = tensor
     return params
+
+
+def params_to_jax(params):
+    """The inverse of :func:`params_from_jax`: a dict of tensors in this
+    package's layouts (on any device) -> numpy arrays in the
+    reference's. Adam's moments take the same way as the kernels they
+    belong to."""
+    params_np = {}
+    for (name, tensor) in params.items():
+        tensor = tensor.detach().cpu()
+        if name in CONV_NAMES:
+            tensor = tensor.permute(2, 3, 1, 0)
+        params_np[name] = numpy.ascontiguousarray(tensor.numpy())
+    return params_np
+
+
+def state_to_jax(state):
+    """A :class:`TrainState` -> ``{checkpoint key: numpy array}`` in the
+    reference's key scheme and layouts."""
+    arrays = {}
+
+    def put(prefix, params):
+        for (name, value) in params_to_jax(params).items():
+            arrays[f"{prefix}['{name}']"] = value
+
+    put(".params", state.params)
+    arrays[".density.parameters"] = state.density.parameters.cpu().numpy()
+    arrays[".density.nb_itvs_per_side"] = state.density.nb_itvs_per_side.cpu().numpy()
+    arrays[".bin_widths"] = state.bin_widths.cpu().numpy()
+    arrays[".opt_eae[0].count"] = state.opt_eae.count.cpu().numpy()
+    put(".opt_eae[0].mu", state.opt_eae.mu)
+    put(".opt_eae[0].nu", state.opt_eae.nu)
+    arrays[".opt_eae[1].count"] = state.opt_eae.count.cpu().numpy()
+    arrays[".step"] = state.step.cpu().numpy()
+    return arrays
+
+
+def _split_key(key):
+    """``".opt_eae[0].mu['gamma_1']"`` -> ``(".opt_eae[0].mu", "gamma_1")``;
+    a key without a dict entry -> ``(key, None)``."""
+    if key.endswith("']") and "['" in key:
+        (prefix, name) = key[:-2].split("['", 1)
+        return (prefix, name)
+    return (key, None)
+
+
+def state_from_jax(arrays):
+    """``{checkpoint key: numpy array}`` in the reference's key scheme
+    and layouts -> a :class:`TrainState` of CPU tensors. Raises on a key
+    this package's state has no place for, on a missing one, and when
+    the optimiser's two update counts differ."""
+    groups = {".params": {}, ".opt_eae[0].mu": {}, ".opt_eae[0].nu": {}}
+    leaves = {}
+    for (key, value) in arrays.items():
+        (prefix, name) = _split_key(key)
+        if name is not None and prefix in groups:
+            groups[prefix][name] = value
+        else:
+            leaves[key] = value
+    wanted = [".density.parameters", ".density.nb_itvs_per_side", ".bin_widths",
+              ".opt_eae[0].count", ".opt_eae[1].count", ".step"]
+    missing = [key for key in wanted if key not in leaves]
+    extra = sorted(set(leaves) - set(wanted))
+    if missing or extra or not groups[".params"]:
+        raise ValueError(f"Not a training state: missing {missing}, unexpected {extra}, "
+                         f"{len(groups['.params'])} parameters.")
+    for prefix in (".opt_eae[0].mu", ".opt_eae[0].nu"):
+        if set(groups[prefix]) != set(groups[".params"]):
+            raise ValueError(f"{prefix} and .params hold different names.")
+    if int(leaves[".opt_eae[0].count"]) != int(leaves[".opt_eae[1].count"]):
+        raise ValueError("The optimiser's two update counts differ: "
+                         f"{leaves['.opt_eae[0].count']} and {leaves['.opt_eae[1].count']}.")
+
+    def tensor(key, dtype):
+        return torch.from_numpy(numpy.array(leaves[key], dtype=dtype))
+
+    return TrainState(
+        params=params_from_jax(groups[".params"]),
+        density=DensityTable(tensor(".density.parameters", numpy.float32),
+                             tensor(".density.nb_itvs_per_side", numpy.int32)),
+        bin_widths=tensor(".bin_widths", numpy.float32),
+        opt_eae=AdamState(tensor(".opt_eae[0].count", numpy.int32),
+                          params_from_jax(groups[".opt_eae[0].mu"]),
+                          params_from_jax(groups[".opt_eae[0].nu"])),
+        step=tensor(".step", numpy.int32))
+
+
+def save_checkpoint(path, state, allow_overwrite=False):
+    """Writes a state to ``<path>.npz`` and then ``<path>.json`` (meta)."""
+    npz_path = path + ".npz"
+    if os.path.isfile(npz_path) and not allow_overwrite:
+        raise FileExistsError(
+            f"{npz_path} already exists; refusing to overwrite a checkpoint.")
+    arrays = state_to_jax(state)
+    os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
+    numpy.savez(npz_path, **arrays)
+    meta = {
+        "nb_leaves": len(arrays),
+        "step": int(arrays[".step"]),
+        "nb_itvs_per_side": int(arrays[".density.nb_itvs_per_side"]),
+        # Per-epoch saves are intermediate until the training part
+        # finishes and calls mark_checkpoint_complete.
+        "part_complete": False,
+    }
+    with open(path + ".json", "w") as file:
+        json.dump(meta, file, indent=2)
+
+
+def load_checkpoint(path, template):
+    """Restores a state saved by :func:`save_checkpoint` (of either
+    package), onto the device of ``template``.
+
+    ``template`` is a state of the same structure (e.g. from
+    ``init_train_state`` with the same experiment configuration): its
+    keys and shapes select the stored arrays, so a renamed, missing,
+    extra or reshaped leaf raises.
+
+    A ``<path>.npz`` without its ``<path>.json`` sidecar is refused: the
+    meta is written last, so a missing sidecar means the writer died
+    mid-save and the npz may be truncated.
+    """
+    if not os.path.isfile(path + ".json"):
+        raise FileNotFoundError(
+            f"{path}.json is missing: {path}.npz is a half-written "
+            "checkpoint (the meta sidecar is written last). Delete the "
+            "leftover npz and resume from the previous part.")
+    wanted = state_to_jax(template)
+    with numpy.load(path + ".npz") as data:
+        stored = set(data.files)
+        missing = [key for key in wanted if key not in stored]
+        extra = sorted(stored - set(wanted))
+        if missing or extra:
+            raise ValueError(
+                "Checkpoint/template key mismatch. Missing from checkpoint: "
+                f"{missing}; unexpected in checkpoint: {extra}.")
+        arrays = {key: data[key] for key in wanted}
+    for (key, leaf) in wanted.items():
+        if tuple(arrays[key].shape) != tuple(leaf.shape):
+            raise ValueError(f"Leaf {key}: checkpoint shape {arrays[key].shape} != "
+                             f"template shape {leaf.shape}.")
+    return state_to(state_from_jax(arrays), template.step.device)
+
+
+def checkpoint_exists(path):
+    """True when ``<path>.npz`` is on disk."""
+    return os.path.isfile(path + ".npz")
+
+
+def mark_checkpoint_complete(path):
+    """Stamps ``<path>.json`` as the END of a finished training part.
+
+    The training CLI saves a checkpoint after every epoch, so mere
+    existence cannot tell a finished part from an interrupted one;
+    resumable runs check :func:`checkpoint_part_complete`."""
+    meta_path = path + ".json"
+    with open(meta_path) as file:
+        meta = json.load(file)
+    meta["part_complete"] = True
+    with open(meta_path, "w") as file:
+        json.dump(meta, file, indent=2)
+
+
+def checkpoint_part_complete(path):
+    """True when the part that produced ``<path>`` ran to completion. A
+    missing sidecar means an interrupted save: not complete."""
+    meta_path = path + ".json"
+    if not os.path.isfile(meta_path):
+        return False
+    with open(meta_path) as file:
+        return bool(json.load(file).get("part_complete", True))
+
+
+def save_params_artifact(path_npz, params, bin_widths, step=None):
+    """Compressed params-only export (no optimiser or density state), in
+    the reference's layouts. ``step`` records the training step the
+    params came from, so that consumers pairing this artifact with the
+    coding statistics can detect a mismatched pair."""
+    arrays = {f"param:{name}": value for (name, value) in params_to_jax(params).items()}
+    arrays["bin_widths"] = torch.as_tensor(bin_widths).detach().cpu().numpy()
+    if step is not None:
+        arrays["step"] = numpy.asarray(int(step), dtype=numpy.int64)
+    os.makedirs(os.path.dirname(path_npz) or ".", exist_ok=True)
+    numpy.savez_compressed(path_npz, **arrays)
+
+
+def params_artifact_step(path_npz):
+    """Training step recorded in a params artifact, or None (old export)."""
+    with numpy.load(path_npz) as data:
+        return int(data["step"]) if "step" in data.files else None

@@ -37,3 +37,11 @@ def save_image(path, array_uint8):
     if array_uint8.dtype != numpy.uint8:
         raise TypeError("`array_uint8.dtype` is not equal to `numpy.uint8`.")
     PIL.Image.fromarray(array_uint8).save(path)
+
+
+def subdivide_set(nb_examples, batch_size):
+    """Number of full mini-batches; raises when not divisible
+    (reference ``tools/tools.py:1108-1132``)."""
+    if nb_examples % batch_size != 0:
+        raise ValueError("`nb_examples` is not divisible by `batch_size`.")
+    return nb_examples // batch_size

@@ -6,12 +6,15 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
-(``make``) from the sources in the checkout, then runs six phases:
+(``make``) from the sources in the checkout, then runs seven phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. every kernel variant against its plain PyTorch version at the main
-   path's shapes (a 4 x 512 x 768 batch: rows 98,304 at H/4 and 24,576
-   at H/8 for GDN/IGDN in fp32 and bf16, 6,144 at H/16 for GDN+quantise);
+   paths' shapes (serving, a 4 x 512 x 768 batch: rows 98,304 at H/4 and
+   24,576 at H/8 for GDN/IGDN in fp32 and bf16, 6,144 at H/16 for
+   GDN+quantise; training, a 10 x 256 x 256 batch: rows 40,960, 10,240
+   and 2,560 for GDN/IGDN in fp32); then the gradient of the fp32 kernel's
+   ``GdnFunction`` against autograd through the plain version;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
    and its statistics at multiplier 1, true bitstreams, verified;
@@ -19,8 +22,20 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    gate table) and the device's own time per batch; fails if bf16w+'s
    worst image is more than 0.05 dB below fp32 at any of the three;
 4. the fixed-bin-width ``roundtrip_batched`` (fused GDN+quantise);
-5. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
-6. the result line ``{"ok": true, "device": {...}}``, last.
+5. training at full width, both architectures (learned and fixed bin
+   widths), on synthetic 256 x 256 crops at batch 10: a fresh state, one
+   density pre-fit epoch, three epochs of 12 ``train_step``s; fails unless
+   the density loss falls over the pre-fit, the rate-distortion loss of
+   ``evaluation`` (same noise) falls over the steps, the projections
+   hold, the gradient of the loss through the kernels agrees with the
+   gradient through plain GDN, and one ``train_step`` launches the
+   expected kernels. Then: checkpoint saved and loaded back equal, a
+   params artifact, ``collect_stats`` on held-out crops, and a few
+   images served through ``PipelinedCompressor`` with those statistics,
+   verified. Prints ms per ``train_step`` and per phase, steps/s, the
+   GDN kernels' share and the device's busy share;
+6. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
+7. the result line ``{"ok": true, "device": {...}}``, last.
 
 Launch counts are set to 0 just before each path and read just after.
 Any failure exits non-zero; so does a machine without a card. Imports
@@ -33,8 +48,10 @@ import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy
 import torch
@@ -74,13 +91,30 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # (the L2 cache holds 50 MB), and the ragged check adds these rows to H/4.
 TIMING_FOOTPRINT_BYTES = 128 << 20
 RAGGED_EXTRA = 37
+# Training: the reference's batch of 10 crops of 256 x 256.
+(TRAIN_BATCH, TRAIN_CROP) = (10, 256)
+TRAIN_GAMMA = 10000.0
+DEVICE = "cuda"
+(TRAIN_IMAGES, TRAIN_EPOCHS, EXTRA_IMAGES, SERVED_IMAGES) = (120, 3, 20, 4)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
-        "H/16": BATCH * HEIGHT * WIDTH // 256}
+        "H/16": BATCH * HEIGHT * WIDTH // 256,
+        "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
+        "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256}
+TRAIN_SHAPES = ("T/4", "T/8", "T/16")
+# The GDN launches of one train_step: (variant, shape). The density phase
+# encodes, the autoencoder phase encodes and decodes; the fixed-bin-width
+# architecture adds GDN_3 and IGDN_4 at the bottleneck.
+TRAIN_SITES = {
+    True: 2 * (("gdn_f32", "T/4"), ("gdn_f32", "T/8"))
+    + (("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
+    False: 2 * (("gdn_f32", "T/4"), ("gdn_f32", "T/8"), ("gdn_f32", "T/16"))
+    + (("igdn_f32", "T/16"), ("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
+}
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
-    "gdn_f32": (torch.float32, False, False, (LEARNED, 1), ("H/4", "H/8"), 26),
-    "igdn_f32": (torch.float32, True, False, (LEARNED, 6), ("H/4", "H/8"), 26),
+    "gdn_f32": (torch.float32, False, False, (LEARNED, 1), ("H/4", "H/8") + TRAIN_SHAPES, 26),
+    "igdn_f32": (torch.float32, True, False, (LEARNED, 6), ("H/4", "H/8") + TRAIN_SHAPES, 26),
     "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8"), 26),
     "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6), ("H/4", "H/8"), 26),
     "gdn_quantize_f32": (torch.float32, False, True, (FIXED, 3), ("H/16",), 44),
@@ -459,6 +493,313 @@ def phase_fixed_bw():
     return {"fixed-bw roundtrip": launches}
 
 
+def _gap_to_max(got, expected):
+    """Largest absolute difference, as a share of the largest entry."""
+    return float((got - expected).abs().max() / expected.abs().max().clamp_min(1e-30))
+
+
+def phase_gradient():
+    """``GdnFunction`` (kernel forward, gradient written out) against
+    autograd through the plain version, same inputs on the card, at the
+    H/4 rows of a training batch. Tolerance: each gradient within 1e-4
+    of its largest entry (fp32 sums over 128 channels, or over 40,960
+    rows for gamma and beta, in another order)."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    rows = ROWS["T/4"]
+    for (seed, name) in enumerate(("gdn_f32", "igdn_f32")):
+        inverse = VARIANTS[name][1]
+        (x, gamma, beta) = kernel_inputs(name, rows, 20 + seed)
+        upstream = torch.randn(x.shape, device=DEVICE,
+                               generator=torch.Generator(DEVICE).manual_seed(seed))
+        grads = {}
+        gk.reset_launch_counts()
+        for (label, fn) in (("kernel", gk.gdn_2d), ("plain", gk.gdn_2d_plain)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+            out = fn(*leaves, inverse=inverse)
+            if not out.requires_grad:
+                raise AssertionError(f"{name}: the {label} result came back detached")
+            grads[label] = torch.autograd.grad(out, leaves, upstream)
+        torch.cuda.synchronize()
+        if gk.LAUNCHES[name] != 1:
+            raise AssertionError(f"{name}: {gk.LAUNCHES[name]} launches in the gradient check")
+        gaps = [_gap_to_max(got, expected)
+                for (got, expected) in zip(grads["kernel"], grads["plain"])]
+        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+        out = gk.gdn_2d(*leaves, inverse=inverse)
+        backward_ms = _median_ms(
+            lambda: torch.autograd.grad(out, leaves, upstream, retain_graph=True), 1, 7)
+        print(f"  {name} gradient at {rows} rows, kernel forward vs autograd through plain: "
+              f"gap / largest entry grad_x {gaps[0]:.3e}, grad_gamma {gaps[1]:.3e}, "
+              f"grad_beta {gaps[2]:.3e} [1e-4]; backward (plain PyTorch) {backward_ms:.4f} ms")
+        if not all(gap <= 1e-4 for gap in gaps):
+            raise AssertionError(f"{name}: gradient gaps {gaps}")
+        # What is never differentiated raises instead of detaching.
+        for (call, error) in (
+                (lambda: gk.gdn_2d(leaves[0].to(torch.bfloat16), gamma, beta), TypeError),
+                (lambda: gk.gdn_quantize_2d(leaves[0], gamma, beta, beta), RuntimeError)):
+            try:
+                call()
+            except error:
+                continue
+            raise AssertionError(f"{name}: an undifferentiable call with grad did not raise")
+
+
+def _uniform_noise(shape, seed):
+    generator = torch.Generator(DEVICE).manual_seed(seed)
+    return torch.rand(shape, device=DEVICE, generator=generator) - 0.5
+
+
+def check_projections(state, learn_bin_widths, ppi, max_itvs):
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+    from autoencoder_based_image_compression_tpu_torch.ops import density as dens
+
+    # The floors as the float32 values the projections clamp to.
+    (floor_gdn, min_bw, max_bw) = (numpy.float32(csts.MIN_GAMMA_BETA),
+                                   numpy.float32(csts.MIN_BW), numpy.float32(csts.MAX_BW))
+    for i in ((1, 2, 5, 6) if learn_bin_widths else (1, 2, 3, 4, 5, 6)):
+        (gamma, beta) = (state.params[f"gamma_{i}"], state.params[f"beta_{i}"])
+        if not (torch.equal(gamma, gamma.t()) and float(gamma.min()) >= floor_gdn
+                and float(beta.min()) >= floor_gdn):
+            raise AssertionError(f"GDN projection {i} does not hold")
+    (low, high) = (float(state.bin_widths.min()), float(state.bin_widths.max()))
+    if not (min_bw <= low and high <= max_bw):
+        raise AssertionError(f"bin widths [{low}, {high}] outside [0.8, 4.0]")
+    mask = dens.active_mask(state.density.nb_itvs_per_side, ppi, max_itvs)
+    floor = numpy.float32(csts.LOW_PROJECTION)
+    parameters = state.density.parameters
+    if not (bool((parameters[:, mask == 0] == floor).all()) and float(parameters.min()) >= floor):
+        raise AssertionError("density projection does not hold")
+    for leaf in (*state.params.values(), parameters, state.bin_widths):
+        if leaf.requires_grad or not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("a state leaf is not finite or still carries a graph")
+
+
+def check_rd_gradient(state, batch, noise, learn_bin_widths, ppi, max_itvs):
+    """The gradient of the rate-distortion loss through the kernels
+    against the same through plain GDN (the wrapper of ``conv_eae``
+    swapped for the plain version), same state, batch and noise. Each
+    parameter's gradient within 1e-4 of its largest entry."""
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import step
+
+    def plain_nhwc(x, gamma, beta, inverse=False):
+        return gk.gdn_2d_plain(x, gamma, beta, inverse)
+
+    args = (state, batch, noise, TRAIN_GAMMA, learn_bin_widths, ppi, max_itvs)
+    gk.reset_launch_counts()
+    (grads, grads_bw, loss) = step.rd_gradients(*args)
+    launched = sum(gk.LAUNCHES.values())
+    with mock.patch.object(conv_eae, "gdn_nhwc", plain_nhwc):
+        (plain, plain_bw, plain_loss) = step.rd_gradients(*args)
+    if launched == 0 or sum(gk.LAUNCHES.values()) != launched:
+        raise AssertionError("the kernel run did not launch, or the plain run did")
+    gaps = {name: _gap_to_max(grads[name], plain[name]) for name in grads}
+    if learn_bin_widths:
+        gaps["bin_widths"] = _gap_to_max(grads_bw, plain_bw)
+    worst = max(gaps, key=gaps.get)
+    print(f"  rate-distortion gradient through the kernels vs plain GDN: loss {float(loss):.6e} "
+          f"vs {float(plain_loss):.6e}; largest gap / largest entry {gaps[worst]:.3e} "
+          f"({worst}) [1e-4]")
+    if not gaps[worst] <= 1e-4:
+        raise AssertionError(f"rate-distortion gradient disagrees: {gaps}")
+
+
+def traced_device_ms(run, steps, top=6):
+    """Device time of one call of ``run`` from a profiler trace of
+    ``steps`` calls: the kernels' own durations summed (the host-side
+    rows of the trace, which carry the same time again, left out), and
+    the ``top`` kernels by time as ``(name, ms a call, launches a call)``.
+    ``(None, [])`` when the trace holds no device time. The profiler
+    slows the host, so the wall time under it is not reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # the profiler's own start-up stays out of the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    kernels = [(event.key, getattr(event, "self_device_time_total",
+                                   getattr(event, "self_cuda_time_total", 0)), event.count)
+               for event in trace.key_averages() if event.device_type == DeviceType.CUDA]
+    total_us = sum(us for (_, us, _) in kernels)
+    if total_us <= 0:
+        return (None, [])
+    kernels.sort(key=lambda row: -row[1])
+    return (1e-3 * total_us / steps,
+            [(name[:60], 1e-3 * us / steps, count / steps) for (name, us, count) in kernels[:top]])
+
+
+def replayed_step_ms(step, repeats=7):
+    """Device time (ms) of ``step()`` replayed from a captured CUDA graph:
+    the step's kernels back to back, with no host work between them.
+    Capturing a training step is no part of the package yet, so a
+    capture that PyTorch refuses gives ``(None, reason)``, not a failure."""
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            kept = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        ms = _median_ms(graph.replay, 1, repeats)
+        del kept, graph
+        return (ms, None)
+    except RuntimeError as error:
+        return (None, (str(error).splitlines() or ["RuntimeError"])[0])
+
+
+def phase_training(kernel_results, learn_bin_widths):
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+    from autoencoder_based_image_compression_tpu_torch.cli import collect_stats
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
+        synthetic_luminance_stack,
+    )
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
+    from autoencoder_based_image_compression_tpu_torch.parallel.inference import (
+        PipelinedCompressor,
+    )
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint, loop
+    from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
+    from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    tag = "learned bin widths" if learn_bin_widths else "fixed bin widths"
+    (ppi, max_itvs) = (csts.NB_POINTS_PER_INTERVAL, csts.MAX_ITVS_PER_SIDE)
+    nb_batches = TRAIN_IMAGES // TRAIN_BATCH
+    training = synthetic_luminance_stack(TRAIN_IMAGES, TRAIN_CROP, TRAIN_CROP, seed=10)
+    state = init_train_state(torch.Generator().manual_seed(0), 1.0, learn_bin_widths,
+                             device=DEVICE)
+    fns = make_step_fns(TRAIN_GAMMA, learn_bin_widths)
+    dataset = loop.device_resident_dataset(training, DEVICE)
+    eval_batch = dataset[:TRAIN_BATCH]
+    latent = (TRAIN_BATCH, TRAIN_CROP // 16, TRAIN_CROP // 16, csts.NB_MAPS_3)
+    eval_noise = _uniform_noise(latent, 1)
+    noise = torch.Generator(DEVICE).manual_seed(2)
+    fns["train_step"](state, eval_batch, noise)  # warm-up: cuDNN plans; result dropped
+    torch.cuda.synchronize()
+
+    def indicators(state):
+        full = loop.evaluate_full(state, eval_batch, fns, TRAIN_GAMMA, eval_noise)
+        return (full["loss_density"], full["scaled_approx_entropy"] + full["rec_error"], full)
+
+    gk.reset_launch_counts()
+    (density_0, rd_0, _) = indicators(state)
+    state = loop.preliminary_fitting(dataset, state, fns, TRAIN_BATCH, 1, noise)
+    (density_1, rd_1, _) = indicators(state)
+    shuffle = numpy.random.default_rng(3)
+    epoch_seconds = []
+    for _ in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = loop.run_epoch_training(dataset, state, fns, TRAIN_BATCH, nb_batches, noise,
+                                        permutation=shuffle.permutation(TRAIN_IMAGES))
+        torch.cuda.synchronize()
+        epoch_seconds.append(time.perf_counter() - t0)
+    (density_2, rd_2, full) = indicators(state)
+    launches = dict(gk.LAUNCHES)
+    steps = TRAIN_EPOCHS * nb_batches
+    sites = TRAIN_SITES[learn_bin_widths]
+    per_step = {name: sum(1 for (variant, _) in sites if variant == name)
+                for name in ("gdn_f32", "igdn_f32")}
+    # Evaluations (3) and pre-fit steps encode (and the evaluations
+    # decode) beside the steps' launches.
+    gdn_encode = per_step["gdn_f32"] // 2
+    expect_launches(f"training, {tag}", launches, {
+        "gdn_f32": steps * per_step["gdn_f32"] + (3 + nb_batches) * gdn_encode,
+        "igdn_f32": (steps + 3) * per_step["igdn_f32"]})
+    print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
+          f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
+          f"{steps} train_steps (before the pre-fit {rd_0:.6e}); rec error "
+          f"{full['rec_error']:.6e}, mean approximate entropy {full['mean_approx_entropy']:.4f}, "
+          f"mean entropy {full['mean_disc_entropy']:.4f}, grid "
+          f"{int(state.density.nb_itvs_per_side)} intervals a side, step {int(state.step)}")
+    if not density_1 < density_0:
+        raise AssertionError(f"{tag}: the density loss did not fall over the pre-fit")
+    if not rd_2 < rd_1:
+        raise AssertionError(f"{tag}: the rate-distortion loss did not fall over the steps")
+    if int(state.step) != steps or int(state.opt_eae.count) != steps:
+        raise AssertionError(f"{tag}: step {int(state.step)}, expected {steps}")
+    check_projections(state, learn_bin_widths, ppi, max_itvs)
+    check_rd_gradient(state, eval_batch, eval_noise, learn_bin_widths, ppi, max_itvs)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the training path must run true fp32")
+
+    gk.reset_launch_counts()
+    fns["train_step"](state, eval_batch, noise)
+    expect_launches(f"one train_step, {tag}", dict(gk.LAUNCHES), per_step)
+
+    # Times: CUDA events round one call, median of 9.
+    step_ms = _median_ms(lambda: fns["train_step"](state, eval_batch, noise), 1, 9)
+    density_ms = _median_ms(lambda: fns["training_fct"](state, eval_batch, noise), 1, 9)
+    eae_ms = _median_ms(lambda: fns["training_eae_bw"](state, eval_batch, noise), 1, 9)
+    gdn_ms = sum(kernel_results[site]["ms"] for site in sites)
+    epoch_s = float(numpy.median(epoch_seconds))
+    (traced_ms, top_kernels) = traced_device_ms(
+        lambda: fns["train_step"](state, eval_batch, noise), 10)
+    print(f"  train_step, {tag}: {step_ms:.3f} ms (density phase {density_ms:.3f} ms, "
+          f"autoencoder phase {eae_ms:.3f} ms); one epoch of {nb_batches} steps "
+          f"{epoch_s:.4f} s = {nb_batches / epoch_s:.2f} steps/s, "
+          f"{nb_batches * TRAIN_BATCH * TRAIN_CROP ** 2 / epoch_s / 1e6:.3f} Mpix/s; GDN forward "
+          f"kernels {gdn_ms:.4f} ms ({100 * gdn_ms / step_ms:.1f} % of the step, "
+          f"{len(sites)} launches); device busy share "
+          + ("not measured (the trace holds no device time)" if traced_ms is None
+             else f"{100 * traced_ms / step_ms:.1f} % ({traced_ms:.3f} ms of kernels a step in "
+                  f"a profiler trace, against the step's {step_ms:.3f} ms)"))
+    for (name, ms, count) in top_kernels:
+        print(f"    {ms:.4f} ms a step, {count:.1f} launches: {name}")
+
+    with tempfile.TemporaryDirectory() as root:
+        exp_dir = os.path.join(root, experiment_suffix(1.0, TRAIN_GAMMA, learn_bin_widths))
+        path = os.path.join(exp_dir, "model_1")
+        checkpoint.save_checkpoint(path, state)
+        checkpoint.mark_checkpoint_complete(path)
+        template = init_train_state(torch.Generator().manual_seed(9), 1.0, learn_bin_widths,
+                                    device=DEVICE)
+        loaded = checkpoint.load_checkpoint(path, template)
+        (saved, back) = (checkpoint.state_to_jax(state), checkpoint.state_to_jax(loaded))
+        if set(saved) != set(back) or not all(numpy.array_equal(saved[key], back[key])
+                                              for key in saved):
+            raise AssertionError(f"{tag}: the checkpoint did not load back equal")
+        checkpoint.save_params_artifact(os.path.join(exp_dir, "params_trained.npz"),
+                                        state.params, state.bin_widths, step=int(state.step))
+        extra = os.path.join(root, "extra.npy")
+        numpy.save(extra, synthetic_luminance_stack(EXTRA_IMAGES, TRAIN_CROP, TRAIN_CROP, 11))
+        collect_stats.main(
+            ["1.0", str(TRAIN_GAMMA), "1", "--from_params", "--path_to_extra_data", extra,
+             "--results_root", root, "--device", DEVICE]
+            + (["--learn_bin_widths"] if learn_bin_widths else []))
+        stats_dir = os.path.join(exp_dir, "statistics")
+        map_mean = numpy.load(os.path.join(stats_dir, "map_mean.npy"))
+        probabilities = numpy.load(os.path.join(stats_dir, "binary_probabilities_1.npy"))
+        with open(os.path.join(stats_dir, "idx_map_exception.pkl"), "rb") as file:
+            idx_exc = pickle.load(file)
+        (params_np, bin_widths) = checkpoint.load_params_artifact(
+            os.path.join(exp_dir, "params_trained.npz"))
+    images = synthetic_luminance_stack(SERVED_IMAGES, TRAIN_CROP, TRAIN_CROP, seed=12)
+    compressor = PipelinedCompressor(
+        checkpoint.params_from_jax(params_np), bin_widths, learn_bin_widths, probabilities,
+        map_mean, idx_map_exception=idx_exc, batch_size=BATCH,
+        fast_path="bf16w+" if learn_bin_widths else None, verify=True, reconstruct=True,
+        device=DEVICE)
+    (recs, bits) = compressor(images)
+    if recs.shape != images.shape or recs.dtype != numpy.uint8 or not numpy.all(bits > 0):
+        raise AssertionError(f"{tag}: served reconstructions {recs.shape} {recs.dtype}, bits "
+                             f"{bits}")
+    psnrs = [psnr_2d(images[i, :, :, 0], recs[i, :, :, 0]) for i in range(SERVED_IMAGES)]
+    print(f"  trained {steps} steps, checkpointed, statistics on {EXTRA_IMAGES} held-out crops, "
+          f"served {SERVED_IMAGES} images ({compressor.fast_path or 'fp32'}, verified): "
+          f"{bits.sum() / images[..., 0].size:.4f} bpp, PSNR mean {numpy.mean(psnrs):.4f} dB")
+    if not numpy.all(numpy.isfinite(psnrs)):
+        raise AssertionError(f"{tag}: PSNR {psnrs}")
+    step_noise = (_uniform_noise(latent, 4), _uniform_noise(latent, 5))
+    return ({f"training, {tag}": launches}, step_ms,
+            lambda: fns["train_step"](state, eval_batch, step_noise))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -474,16 +815,34 @@ def main():
 
     print("phase 2: kernels against their plain versions")
     kernel_results = phase_kernels()
+    phase_gradient()
     print("phase 3: serving (PipelinedCompressor)")
     path_launches = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
     path_launches.update(phase_fixed_bw())
+    print("phase 5: training (pre-fit, train_step, checkpoint, collect_stats, serve)")
+    replays = {}
+    for learn_bin_widths in (True, False):
+        (launches, step_ms, step) = phase_training(kernel_results, learn_bin_widths)
+        path_launches.update(launches)
+        replays[next(iter(launches))] = (step_ms, step)
+    # Last of the device work: a refused capture may leave the context unusable.
+    for (path, (step_ms, step)) in replays.items():
+        (replayed_ms, reason) = replayed_step_ms(step)
+        print(f"  one train_step replayed from a CUDA graph, {path}: "
+              + (f"not measured ({reason})" if replayed_ms is None else
+                 f"{replayed_ms:.3f} ms of device work against {step_ms:.3f} ms eager "
+                 f"(device busy {100 * replayed_ms / step_ms:.1f} % of the eager step)"))
 
-    print("phase 5: kernel times")
-    # Each kernel of a path, with its launches on that path.
+    print("phase 6: kernel times")
+    # Each kernel of a path, with its launches on that path (the counts
+    # are per variant: a variant's shapes on one path share them).
     on_path = [("gdn_f32", "serving bf16w+", "H/4"), ("igdn_bf16", "serving bf16w+", "H/4"),
                ("igdn_f32", "serving fp32", "H/4"),
                ("gdn_quantize_f32", "fixed-bw roundtrip", "H/16")]
+    on_path += [(name, "training, fixed bin widths", shape)
+                for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
+    on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
     kernels = []
     for (name, path, shape) in on_path:
         launches = path_launches[path][name]

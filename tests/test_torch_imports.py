@@ -1,5 +1,5 @@
-"""PyTorch port: no port module and not chip_smoke.py imports JAX or
-the JAX package (an AST walk: a text search would be fooled by the
+"""PyTorch port: no port module and not chip_smoke.py imports JAX, optax
+or the JAX package (an AST walk: a text search would be fooled by the
 port's own package name, which extends the JAX package's)."""
 
 import ast
@@ -9,7 +9,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "autoencoder_based_image_compression_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "autoencoder_based_image_compression_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "autoencoder_based_image_compression_tpu")
 
 
 def _port_files():
@@ -43,6 +43,12 @@ def test_walk_sees_the_whole_port():
     assert "chip_smoke.py" in rel
     assert f"{PORT}/parallel/inference.py" in rel
     assert f"{PORT}/ops/kernels/gdn_kernel.py" in rel
+    # The training path.
+    for name in ("ops/density.py", "train/state.py", "train/step.py", "train/loop.py",
+                 "train/checkpoint.py", "cli/train_eae.py", "cli/collect_stats.py",
+                 "coding/stats.py", "utils/parsing.py", "eval/visualization.py"):
+        assert f"{PORT}/{name}" in rel
+    assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.
     assert "autoencoder_based_image_compression_tpu.models".split(".")[0] in FORBIDDEN
     assert PORT not in FORBIDDEN
