@@ -11,6 +11,7 @@ import numpy
 
 from autoencoder_based_image_compression_tpu_torch.coding import native
 from autoencoder_based_image_compression_tpu_torch.ops.metrics import discrete_entropy
+from autoencoder_based_image_compression_tpu_torch.ops.quantization import cast_float_to_int16
 
 
 def _load_probabilities(binary_probabilities):
@@ -107,3 +108,30 @@ def compress_lossless_images(symbols_int16, binary_probabilities,
                 1.0)
             nb_bits[i] += int(numpy.ceil(cumulated_entropy))
     return nb_bits
+
+
+def rescale_compress_lossless_maps(centered_quantized_data, bin_widths_test,
+                                   binary_probabilities, idx_map_exception=-1,
+                                   nb_threads=0):
+    """Rescales centred-quantised floats to int16 symbols, codes, verifies.
+
+    ``symbols = round(centered_quantized / bin_width)`` (the rounding
+    corrects float division error, reference ``compression.py:137-142``),
+    then per-map lossless coding, then the bit-exactness assertion on
+    the rescaled reconstruction. Returns the total number of bits.
+    """
+    bin_widths_test = numpy.asarray(bin_widths_test)
+    if bin_widths_test.ndim != 1:
+        raise ValueError("`bin_widths_test.ndim` is not equal to 1.")
+    (height_map, width_map, nb_maps) = centered_quantized_data.shape
+    if bin_widths_test.size != nb_maps:
+        raise ValueError("`bin_widths_test.size` != `centered_quantized_data.shape[2]`.")
+    bw = bin_widths_test.reshape(1, 1, nb_maps)
+    ref_int16 = cast_float_to_int16(centered_quantized_data / bw)
+    (rec_int16, nb_bits_each_map) = compress_lossless_maps(
+        ref_int16, binary_probabilities, idx_map_exception, nb_threads)
+    reconstruction = rec_int16.astype(numpy.float32) * bw
+    numpy.testing.assert_equal(
+        centered_quantized_data, reconstruction,
+        err_msg="The lossless compression has altered the centered quantized data.")
+    return int(numpy.sum(nb_bits_each_map))

@@ -89,6 +89,41 @@ def as_ptr(array, ctype):
     return array.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+def compress_lossless_flattened_map(ref_map_int16, probabilities):
+    """Round-trips one flattened int16 map through the C++ coder.
+
+    Same contract as the reference's Cython entry
+    (``interface_cython.pyx:13-61``): returns ``(reconstruction,
+    nb_bits)``; the truncated-unary length is ``probabilities.size`` and
+    must fit a uint8. Raises ``TypeError`` / ``ValueError`` on contract
+    violations and ``RuntimeError`` when the C++ core reports an error.
+    """
+    if ref_map_int16.dtype != numpy.int16:
+        raise TypeError("`ref_map_int16.dtype` is not equal to `numpy.int16`.")
+    if ref_map_int16.ndim != 1:
+        raise ValueError("`ref_map_int16.ndim` is not equal to 1.")
+    probabilities = numpy.ascontiguousarray(probabilities, dtype=numpy.float64)
+    if probabilities.ndim != 1:
+        raise ValueError("`probabilities.ndim` is not equal to 1.")
+    if probabilities.size > 255:
+        raise ValueError("The truncated-unary length does not fit a uint8.")
+    lib = load_library()
+    ref = numpy.ascontiguousarray(ref_map_int16)
+    rec = numpy.zeros_like(ref)
+    nb_bits = ctypes.c_uint32(0)
+    status = lib.aeic_compress_lossless(
+        ctypes.c_uint32(ref.size),
+        as_ptr(ref, ctypes.c_int16),
+        as_ptr(rec, ctypes.c_int16),
+        ctypes.c_uint8(probabilities.size),
+        as_ptr(probabilities, ctypes.c_double),
+        ctypes.byref(nb_bits),
+    )
+    if status != 0:
+        raise RuntimeError(f"C++ coder returned error status {status}.")
+    return (rec, int(nb_bits.value))
+
+
 def compress_lossless_batch(ref_maps_int16, probabilities, nb_threads=0,
                             verify=True):
     """Codes a stack of maps on the C++ thread pool.

@@ -50,19 +50,30 @@ class TrainState(NamedTuple):
     step: torch.Tensor               # int32 global step (counts eae updates)
 
 
-def state_to(state, device):
-    """The state with every leaf moved to ``device``."""
-    def move(params):
-        return {name: value.to(device) for (name, value) in params.items()}
+def map_state(fn, *states):
+    """``fn`` applied leaf by leaf across states of one structure: the
+    state whose every leaf is ``fn(leaf_of_states[0], leaf_of_states[1],
+    ...)``."""
+    def leaf(get):
+        return fn(*[get(state) for state in states])
+
+    def group(get):
+        return {name: fn(*[get(state)[name] for state in states])
+                for name in get(states[0])}
 
     return TrainState(
-        params=move(state.params),
-        density=DensityTable(state.density.parameters.to(device),
-                             state.density.nb_itvs_per_side.to(device)),
-        bin_widths=state.bin_widths.to(device),
-        opt_eae=AdamState(state.opt_eae.count.to(device), move(state.opt_eae.mu),
-                          move(state.opt_eae.nu)),
-        step=state.step.to(device))
+        params=group(lambda s: s.params),
+        density=DensityTable(leaf(lambda s: s.density.parameters),
+                             leaf(lambda s: s.density.nb_itvs_per_side)),
+        bin_widths=leaf(lambda s: s.bin_widths),
+        opt_eae=AdamState(leaf(lambda s: s.opt_eae.count), group(lambda s: s.opt_eae.mu),
+                          group(lambda s: s.opt_eae.nu)),
+        step=leaf(lambda s: s.step))
+
+
+def state_to(state, device):
+    """The state with every leaf moved to ``device``."""
+    return map_state(lambda leaf: leaf.to(device), state)
 
 
 def init_adam(params):

@@ -151,6 +151,20 @@ def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, 
                           step=state.step + 1)
 
 
+def epoch_over_rows(train_step, state, dataset, rows, noise):
+    """``train_step`` over the ``(nb_batches, batch_size)`` row indices of
+    a device-resident uint8 dataset, each batch gathered on the device;
+    ``noise`` is a generator or one ``train_step`` noise per batch."""
+    rows = torch.as_tensor(rows, device=dataset.device).to(torch.int64)
+    if not isinstance(noise, torch.Generator) and len(noise) != rows.shape[0]:
+        raise ValueError(f"{len(noise)} noises for {rows.shape[0]} batches.")
+    for (i, batch_rows) in enumerate(rows):
+        batch = dataset.index_select(0, batch_rows)
+        step_noise = noise if isinstance(noise, torch.Generator) else noise[i]
+        state = train_step(state, batch, step_noise)
+    return state
+
+
 def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERVAL,
                   max_itvs=csts.MAX_ITVS_PER_SIDE, bw_warmup_steps=0, bw_warmup_max=1.0):
     """Builds the training and evaluation functions of one experiment.
@@ -189,14 +203,7 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
         return training_eae_bw(training_fct(state, batch, noise_fct), batch, noise_eae)
 
     def train_epoch(state, dataset, rows, noise):
-        rows = torch.as_tensor(rows, device=dataset.device).to(torch.int64)
-        if not isinstance(noise, torch.Generator) and len(noise) != rows.shape[0]:
-            raise ValueError(f"{len(noise)} noises for {rows.shape[0]} batches.")
-        for (i, batch_rows) in enumerate(rows):
-            batch = dataset.index_select(0, batch_rows)
-            step_noise = noise if isinstance(noise, torch.Generator) else noise[i]
-            state = train_step(state, batch, step_noise)
-        return state
+        return epoch_over_rows(train_step, state, dataset, rows, noise)
 
     @torch.no_grad()
     def evaluation(state, batch, noise):

@@ -6,15 +6,16 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
-(``make``) from the sources in the checkout, then runs seven phases:
+(``make``) from the sources in the checkout, then runs nine phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. every kernel variant against its plain PyTorch version at the main
    paths' shapes (serving, a 4 x 512 x 768 batch: rows 98,304 at H/4 and
    24,576 at H/8 for GDN/IGDN in fp32 and bf16, 6,144 at H/16 for
-   GDN+quantise; training, a 10 x 256 x 256 batch: rows 40,960, 10,240
-   and 2,560 for GDN/IGDN in fp32); then the gradient of the fp32 kernel's
-   ``GdnFunction`` against autograd through the plain version;
+   GDN/IGDN in fp32 and GDN+quantise; training, a 10 x 256 x 256 batch:
+   rows 40,960, 10,240 and 2,560 for GDN/IGDN in fp32), and at ragged row
+   counts; then the gradient of the fp32 kernel's ``GdnFunction`` against
+   autograd through the plain version;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
    and its statistics at multiplier 1, true bitstreams, verified;
@@ -34,14 +35,40 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    images served through ``PipelinedCompressor`` with those statistics,
    verified. Prints ms per ``train_step`` and per phase, steps/s, the
    GDN kernels' share and the device's busy share;
-6. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
-7. the result line ``{"ok": true, "device": {...}}``, last.
+6. the gamma ladder at full width: ``cli/train_ladder`` trains the seven
+   models of ``GAMMAS_DEFAULT`` on shared batches of 10 synthetic
+   256 x 256 crops (part 0: one pre-fit epoch and one epoch of 12 ladder
+   steps; part 1 resumed from part 0's seven checkpoints). Fails unless
+   every model's density loss falls over the pre-fit and its
+   rate-distortion loss over the steps, the models differ from each
+   other, the bin widths stay put, a ladder ``train_step`` launches
+   42 + 21 kernels, a ladder model equals a single-model run on the same
+   batches and noise, part 0 refuses to be retrained and part 1 resumes
+   at part 0's step. Prints ms per ladder ``train_step`` beside seven
+   single-model steps, ladder-steps/s and the device's busy share;
+7. the rate-distortion study on the committed trained models and the 24
+   images of ``synthetic_kodak(seed=14)``, through ``eval/rd_sweep``: the
+   one-model-per-gamma family (entropy rates) and both multiplier
+   families (true coded rates from the arithmetic coder). Fails unless
+   every image's PSNR is within 0.05 dB, every point's mean rate within
+   1 % (every image's within 2 %) and 99 % of the dead-map counts equal
+   to the committed curves under ``results/eae/kodak_rd/``, a second call
+   comes from the cache without a launch, the launches are 396 + 396 and
+   the Bjontegaard savings against the committed JPEG2000 curve are
+   within 0.5 points of the committed ones. ``cli/reconstruct_kodak`` is
+   driven too when PIL and matplotlib are there (printed either way);
+8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
+9. the result line ``{"ok": true, "device": {...}}``, last.
 
 Launch counts are set to 0 just before each path and read just after.
 Any failure exits non-zero; so does a machine without a card. Imports
 nothing of JAX.
 """
 
+import contextlib
+import hashlib
+import importlib.util
+import io
 import json
 import os
 import pickle
@@ -59,6 +86,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 LEARNED = os.path.join(REPO, "results", "eae", "learning_bw", "0dot5_10000")
 FIXED = os.path.join(REPO, "results", "eae", "fixed_bw", "1_10000")
+PACKAGE = os.path.join(REPO, "autoencoder_based_image_compression_tpu_torch")
+RESULTS_ROOT = os.path.join(REPO, "results", "eae")
+COMMITTED_RD = os.path.join(RESULTS_ROOT, "kodak_rd")
 KERNEL_SOURCE = "autoencoder_based_image_compression_tpu_torch/csrc/gdn.cu"
 TPU_KERNELS = "autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py"
 GATE_DB = 0.05
@@ -101,6 +131,13 @@ ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64
         "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
         "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256}
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
+SERVE_SHAPES = ("H/4", "H/8", "H/16")
+# The ladder: one epoch of 12 shared batches a part; the single-model
+# comparison runs 3 steps; the RD study's gates against the committed curves.
+(LADDER_IMAGES, LADDER_COMPARED_STEPS) = (120, 3)
+RD_IMAGES_TAG = "6c3a64d647"
+(RD_PSNR_DB, RD_MEAN_RATE, RD_IMAGE_RATE, RD_DEADS_EQUAL, RD_BJONTEGAARD_POINTS) = (
+    0.05, 0.01, 0.02, 0.99, 0.5)
 # The GDN launches of one train_step: (variant, shape). The density phase
 # encodes, the autoencoder phase encodes and decodes; the fixed-bin-width
 # architecture adds GDN_3 and IGDN_4 at the bottleneck.
@@ -113,8 +150,8 @@ TRAIN_SITES = {
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
-    "gdn_f32": (torch.float32, False, False, (LEARNED, 1), ("H/4", "H/8") + TRAIN_SHAPES, 26),
-    "igdn_f32": (torch.float32, True, False, (LEARNED, 6), ("H/4", "H/8") + TRAIN_SHAPES, 26),
+    "gdn_f32": (torch.float32, False, False, (LEARNED, 1), SERVE_SHAPES + TRAIN_SHAPES, 26),
+    "igdn_f32": (torch.float32, True, False, (LEARNED, 6), SERVE_SHAPES + TRAIN_SHAPES, 26),
     "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8"), 26),
     "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6), ("H/4", "H/8"), 26),
     "gdn_quantize_f32": (torch.float32, False, True, (FIXED, 3), ("H/16",), 44),
@@ -251,10 +288,14 @@ def phase_kernels():
     for (seed, (name, (dtype, inverse, quantize, _, shapes, _))) in enumerate(VARIANTS.items()):
         kernel = gk.gdn_quantize_2d if quantize else gk.gdn_2d
         plain = gk.gdn_quantize_2d_plain if quantize else gk.gdn_2d_plain
-        # A ragged row count first (the last tile is masked), then the
-        # main path's shapes, which are also timed.
-        for shape in ("ragged",) + shapes:
-            rows = ROWS["H/4"] + RAGGED_EXTRA if shape == "ragged" else ROWS[shape]
+        # Ragged row counts first (the last tile is masked; also at the
+        # H/16 rows where the variant runs there), then the main paths'
+        # shapes, which are also timed.
+        ragged = {"ragged": ROWS["H/4"] + RAGGED_EXTRA}
+        if "H/16" in shapes:
+            ragged["ragged H/16"] = ROWS["H/16"] + RAGGED_EXTRA
+        for shape in tuple(ragged) + shapes:
+            rows = ragged.get(shape) or ROWS[shape]
             (x, *params) = kernel_inputs(name, rows, seed)
             got = kernel(x, *params, inverse=inverse)
             expected = plain(x, *params, inverse=inverse)
@@ -263,7 +304,7 @@ def phase_kernels():
                 name, rows, got, expected, params[-1])
             head = (f"  {name:17s} rows {rows:6d} ({shape:6s}): max abs err {max_abs:.3e}, "
                     f"max rel err {max_rel:.3e} [{tolerance}] {detail}")
-            if shape == "ragged":
+            if shape in ragged:
                 print(head)
                 continue
             del got, expected
@@ -800,10 +841,395 @@ def phase_training(kernel_results, learn_bin_widths):
             lambda: fns["train_step"](state, eval_batch, step_noise))
 
 
+def _run_printing(main, args):
+    """``main(args)`` with what it prints shown indented and returned."""
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        main(args)
+    printed = captured.getvalue()
+    for line in printed.splitlines():
+        if line.strip():
+            print(f"    | {line}")
+    return printed
+
+
+def phase_ladder():
+    """The gamma ladder at full width through ``cli/train_ladder``, held
+    against the single-model step functions. Returns the path's launch
+    counts, the ladder ``train_step``'s eager ms and a closure of one
+    ladder step on fixed noise (for the CUDA-graph replay)."""
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+    from autoencoder_based_image_compression_tpu_torch.cli import train_ladder
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
+        synthetic_luminance_stack,
+    )
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint, ladder, loop
+    from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
+    from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    gammas = train_ladder.GAMMAS_DEFAULT
+    nb_models = len(gammas)
+    nb_batches = LADDER_IMAGES // TRAIN_BATCH
+    seed = 0
+    training = synthetic_luminance_stack(LADDER_IMAGES, TRAIN_CROP, TRAIN_CROP, seed=20)
+    validation = synthetic_luminance_stack(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, seed=21)
+    dataset = loop.device_resident_dataset(training, DEVICE)
+    eval_batch = dataset[:TRAIN_BATCH]
+    latent = (TRAIN_BATCH, TRAIN_CROP // 16, TRAIN_CROP // 16, csts.NB_MAPS_3)
+    eval_noise = _uniform_noise(latent, 1)
+    fns = ladder.make_ladder_step_fns(gammas)
+    single_fns = [make_step_fns(gamma, False) for gamma in gammas]
+
+    def indicators(states):
+        """Per model: (density loss, rate-distortion loss) on the
+        evaluation batch with the evaluation noise."""
+        rows = []
+        for (k, gamma) in enumerate(gammas):
+            full = loop.evaluate_full(ladder.ladder_slice_state(states, k, gamma), eval_batch,
+                                      single_fns[k], gamma, eval_noise)
+            rows.append((full["loss_density"],
+                         full["scaled_approx_entropy"] + full["rec_error"]))
+        return numpy.array(rows)
+
+    # The CLI's own start and pre-fit, made again here from the same seeds,
+    # so that the losses can be read before and after the pre-fit.
+    start = ladder.init_ladder_state(torch.Generator().manual_seed(seed), gammas, 1.0,
+                                     device=DEVICE)
+    before = indicators(start)
+    prefit = loop.preliminary_fitting(dataset, start, fns, TRAIN_BATCH, 1,
+                                      torch.Generator(DEVICE).manual_seed(seed + 1))
+    fitted = indicators(prefit)
+
+    gk.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as root:
+        (path_training, path_validation) = (os.path.join(root, "training.npy"),
+                                            os.path.join(root, "validation.npy"))
+        numpy.save(path_training, training)
+        numpy.save(path_validation, validation)
+        results_root = os.path.join(root, "results")
+
+        def cli_args(idx_training):
+            return ["1.0", str(idx_training), "--nb_epochs_training", "1", "--batch_size",
+                    str(TRAIN_BATCH), "--nb_eval_examples", str(TRAIN_BATCH),
+                    "--path_to_training_data", path_training, "--path_to_validation_data",
+                    path_validation, "--results_root", results_root, "--seed", str(seed),
+                    "--device", DEVICE]
+
+        def load_part(idx_model):
+            template = init_train_state(torch.Generator().manual_seed(9), 1.0, False,
+                                        device=DEVICE)
+            paths = [os.path.join(results_root, experiment_suffix(1.0, gamma, False),
+                                  f"model_{idx_model}") for gamma in gammas]
+            for path in paths:
+                if not checkpoint.checkpoint_part_complete(path):
+                    raise AssertionError(f"{path} is not a finished part")
+            return ladder.ladder_stack_states(
+                [checkpoint.load_checkpoint(path, template) for path in paths])
+
+        printed = _run_printing(train_ladder.main, cli_args(0))
+        part_launches = dict(gk.LAUNCHES)
+        trained = load_part(1)
+        try:
+            train_ladder.main(cli_args(0))
+        except RuntimeError as error:
+            print(f"  part 0 again: refused ({error})")
+        else:
+            raise AssertionError("part 0 was retrained over its checkpoints")
+        printed_1 = _run_printing(train_ladder.main, cli_args(1))
+        resumed = load_part(2)
+    # Part 0: the pre-fit encodes once a batch and model; each of the two
+    # evaluations (training and validation portion) encodes and decodes once
+    # a model; each of the 12 ladder steps is 6 GDN + 3 IGDN a model.
+    expect_launches("ladder training (part 0)", part_launches, {
+        "gdn_f32": nb_models * 3 * (nb_batches + 2 + 2 * nb_batches),
+        "igdn_f32": nb_models * 3 * (2 + nb_batches)})
+    epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
+    if epoch is None or f"global step {nb_batches})" not in printed_1:
+        raise AssertionError("the ladder CLI's epoch lines are not as expected")
+    steps = [int(step) for step in resumed.step.tolist()]
+    if trained.step.tolist() != [nb_batches] * nb_models or steps != [2 * nb_batches] * nb_models:
+        raise AssertionError(f"ladder steps {trained.step.tolist()} then {steps}")
+
+    after = indicators(trained)
+    for (k, gamma) in enumerate(gammas):
+        print(f"  gamma {gamma:>7.0f}: density loss {before[k, 0]:.4f} -> {fitted[k, 0]:.4f} over "
+              f"the pre-fit ({nb_batches} steps); rate-distortion loss {fitted[k, 1]:.6e} -> "
+              f"{after[k, 1]:.6e} over {nb_batches} ladder steps; grid "
+              f"{int(trained.density.nb_itvs_per_side[k])}")
+    if not (fitted[:, 0] < before[:, 0]).all():
+        raise AssertionError("a model's density loss did not fall over the pre-fit")
+    if not (after[:, 1] < fitted[:, 1]).all():
+        raise AssertionError("a model's rate-distortion loss did not fall over the steps")
+    for k in range(nb_models):
+        for other in range(k + 1, nb_models):
+            if torch.allclose(trained.params["weights_1"][k], trained.params["weights_1"][other]):
+                raise AssertionError(f"ladder models {k} and {other} did not diverge")
+    if not bool((trained.bin_widths == 1.0).all() and (resumed.bin_widths == 1.0).all()):
+        raise AssertionError("a ladder step moved the bin widths")
+    for k in range(nb_models):
+        check_projections(ladder.ladder_slice_state(trained, k), False,
+                          csts.NB_POINTS_PER_INTERVAL, csts.MAX_ITVS_PER_SIDE)
+
+    noise = torch.Generator(DEVICE).manual_seed(2)
+    gk.reset_launch_counts()
+    fns["train_step"](trained, eval_batch, noise)
+    expect_launches("one ladder train_step", dict(gk.LAUNCHES),
+                    {"gdn_f32": 6 * nb_models, "igdn_f32": 3 * nb_models})
+
+    # Model k of the ladder against a single-model run from the same
+    # start on the same batches and noise.
+    batches = [dataset[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+               for i in range(LADDER_COMPARED_STEPS)]
+    noises = [[(_uniform_noise(latent, 100 + 20 * i + 2 * k),
+                _uniform_noise(latent, 101 + 20 * i + 2 * k)) for k in range(nb_models)]
+              for i in range(LADDER_COMPARED_STEPS)]
+    stepped = trained
+    for (batch, step_noise) in zip(batches, noises):
+        stepped = fns["train_step"](stepped, batch, step_noise)
+    bound_gap = 2 * csts.LR_EAE * LADDER_COMPARED_STEPS * (1 + 1e-4)
+    (worst_gap, outside, entries) = (0.0, 0, 0)
+    for (k, gamma) in enumerate(gammas):
+        single = ladder.ladder_slice_state(trained, k, gamma)
+        for (batch, step_noise) in zip(batches, noises):
+            single = single_fns[k]["train_step"](single, batch, step_noise[k])
+        for (name, expected) in single.params.items():
+            got = stepped.params[name][k]
+            gap = (got - expected).abs()
+            worst_gap = max(worst_gap, float(gap.max()))
+            outside += int((gap > 1e-6 + 1e-5 * expected.abs()).sum())
+            entries += gap.numel()
+        if int(stepped.density.nb_itvs_per_side[k]) != int(single.density.nb_itvs_per_side):
+            raise AssertionError(f"ladder model {k}: another grid than the single-model run")
+    print(f"  ladder vs single-model runs, {LADDER_COMPARED_STEPS} steps, {nb_models} models: "
+          f"largest parameter gap {worst_gap:.3e}; {outside} of {entries} entries outside "
+          f"rtol 1e-5 / atol 1e-6 (Adam's bound {bound_gap:.1e})")
+    # The density gradient's scatter-add sums in an order that varies from
+    # run to run, so an entry whose gradient is near zero may move by the
+    # learning rate either way; no more than that, and in few entries.
+    if worst_gap > bound_gap or outside > 1e-4 * entries:
+        raise AssertionError("a ladder model disagrees with its single-model run")
+
+    # Times: CUDA events round one call, median of 7.
+    singles = [ladder.ladder_slice_state(trained, k, gamma) for (k, gamma) in enumerate(gammas)]
+    ladder_ms = _median_ms(lambda: fns["train_step"](trained, eval_batch, noise), 1, 7)
+    singles_ms = _median_ms(
+        lambda: [single_fns[k]["train_step"](singles[k], eval_batch, noise)
+                 for k in range(nb_models)], 1, 7)
+    stack_ms = _median_ms(lambda: ladder.ladder_stack_states(singles), 1, 7)
+    (traced_ms, top_kernels) = traced_device_ms(
+        lambda: fns["train_step"](trained, eval_batch, noise), 5)
+    print(f"  ladder train_step ({nb_models} models): {ladder_ms:.3f} ms against "
+          f"{singles_ms:.3f} ms for {nb_models} single-model train_steps; stacking the states "
+          f"{stack_ms:.3f} ms; the CLI's epoch of {nb_batches}: {epoch.group(1)} ladder-steps/s, "
+          f"{epoch.group(2)} model-Mpix/s aggregate; device busy share "
+          + ("not measured (the trace holds no device time)" if traced_ms is None
+             else f"{100 * traced_ms / ladder_ms:.1f} % ({traced_ms:.3f} ms of kernels a ladder "
+                  f"step in a profiler trace, against the step's {ladder_ms:.3f} ms)"))
+    for (name, ms, count) in top_kernels:
+        print(f"    {ms:.4f} ms a ladder step, {count:.1f} launches: {name}")
+    return ({"ladder training": part_launches}, ladder_ms,
+            lambda: fns["train_step"](trained, eval_batch, noises[0]))
+
+
+def phase_rd_study():
+    """The rate-distortion study on the committed models, held against
+    the committed curves. Returns the path's launch counts."""
+    from autoencoder_based_image_compression_tpu_torch.cli import reconstruct_kodak
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
+    from autoencoder_based_image_compression_tpu_torch.eval import rd_sweep
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.ops.metrics import (
+        bjontegaard_fit_quality,
+        compute_bjontegaard,
+    )
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import (
+        experiment_suffix,
+        float_to_str,
+    )
+
+    images = synthetic_kodak(seed=14)[..., 0]
+    tag = hashlib.sha1(images.tobytes()).hexdigest()[:10]
+    if tag != RD_IMAGES_TAG:
+        raise AssertionError(f"the image set hashes to {tag}, not {RD_IMAGES_TAG}")
+    gammas = reconstruct_kodak.GAMMAS_VARY
+    multipliers = reconstruct_kodak.MULTIPLIERS
+    device = torch.device(DEVICE)
+
+    def load(bw_init, gamma, learn_bw):
+        model = reconstruct_kodak._load_state(RESULTS_ROOT, bw_init, gamma, learn_bw, 1, device)
+        if model is None:
+            raise AssertionError(f"no trained model for {bw_init}, {gamma}, {learn_bw}")
+        return model
+
+    # The transforms' share of the time: the sweep's two device calls,
+    # which end with the result on the host.
+    device_s = [0.0]
+
+    def timed(fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            device_s[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    families = {}
+    worst = {"psnr": 0.0, "mean_rate": 0.0, "image_rate": 0.0, "deads": 1.0}
+
+    def hold(kind, label, got, path):
+        """One curve array against the committed array of the same name."""
+        expected = numpy.load(os.path.join(COMMITTED_RD, os.path.basename(path)))
+        if got.shape != expected.shape or not numpy.all(numpy.isfinite(got)):
+            raise AssertionError(f"{label} {kind}: shape {got.shape}, expected {expected.shape}")
+        if kind == "psnrs":
+            gap = float(numpy.abs(got - expected).max())
+            worst["psnr"] = max(worst["psnr"], gap)
+            if gap > RD_PSNR_DB:
+                raise AssertionError(f"{label}: an image's PSNR is {gap:.4f} dB off")
+            return f"PSNR gap {gap:.3e} dB (worst image)"
+        if kind == "rates":
+            mean_gap = float(numpy.abs(got.mean(axis=1) / expected.mean(axis=1) - 1.0).max())
+            image_gap = float(numpy.abs(got / expected - 1.0).max())
+            worst["mean_rate"] = max(worst["mean_rate"], mean_gap)
+            worst["image_rate"] = max(worst["image_rate"], image_gap)
+            if mean_gap > RD_MEAN_RATE or image_gap > RD_IMAGE_RATE:
+                raise AssertionError(f"{label}: rates off by {mean_gap:.3e} (a point's mean) "
+                                     f"and {image_gap:.3e} (an image)")
+            return f"rate gap {mean_gap:.3e} (a point's mean), {image_gap:.3e} (an image)"
+        equal = float(numpy.mean(got == expected))
+        worst["deads"] = min(worst["deads"], equal)
+        if equal < RD_DEADS_EQUAL:
+            raise AssertionError(f"{label}: only {equal:.4f} of the dead-map counts are equal")
+        return f"dead-map counts equal in {100 * equal:.2f} %"
+
+    gk.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as cache_dir, \
+            mock.patch.object(rd_sweep, "encode_mini_batches",
+                              timed(rd_sweep.encode_mini_batches)), \
+            mock.patch.object(rd_sweep, "decode_mini_batches",
+                              timed(rd_sweep.decode_mini_batches)):
+        def sweep(label, kinds, stem, run):
+            """Runs one family, holds it against the committed arrays,
+            then calls it again: from the cache, without a launch."""
+            before = dict(gk.LAUNCHES)
+            (t0, d0) = (time.perf_counter(), device_s[0])
+            arrays = run()
+            (seconds, transforms) = (time.perf_counter() - t0, device_s[0] - d0)
+            launched = {name: gk.LAUNCHES[name] - before.get(name, 0) for name in gk.LAUNCHES
+                        if gk.LAUNCHES[name] != before.get(name, 0)}
+            said = [hold(kind, label, array, os.path.join(cache_dir, f"{kind}_{stem}.npy"))
+                    for (kind, array) in zip(kinds, arrays)]
+            again = run()
+            if any(gk.LAUNCHES[name] != before.get(name, 0) + count
+                   for (name, count) in launched.items()) or not all(
+                       numpy.array_equal(a, b) for (a, b) in zip(arrays, again)):
+                raise AssertionError(f"{label}: the second call did not come from the cache")
+            print(f"  {label}: {arrays[0].shape[0]} points x {arrays[0].shape[1]} images in "
+                  f"{seconds:.2f} s (device transforms with their transfers {transforms:.2f} s, "
+                  f"host rates and PSNRs {seconds - transforms:.2f} s); launches {launched}; "
+                  + "; ".join(said) + "; second call from the cache, no launch")
+            families[label] = arrays
+
+        models = {gamma: load(1.0, gamma, False) for gamma in gammas}
+        vary_id = "g" + "-".join(
+            f"{float_to_str(g)}s{reconstruct_kodak._step_key(models[g].step)}" for g in gammas)
+        sweep("EAE one model per gamma", ("rates", "psnrs"), f"vary_gamma_{vary_id}",
+              lambda: rd_sweep.vary_gamma_fix_bin_widths(
+                  images, {g: models[g].params for g in gammas}, gammas, BATCH, cache_dir,
+                  experiment_id=vary_id))
+        for (learn_bw, bw_init, label) in ((True, 0.5, "EAE learned bin widths"),
+                                           (False, 1.0, "EAE fixed bin widths")):
+            model = models[10000.0] if not learn_bw else load(bw_init, 10000.0, True)
+            stats_dir = os.path.join(RESULTS_ROOT, experiment_suffix(bw_init, 10000.0, learn_bw),
+                                     "statistics")
+            map_mean = numpy.load(os.path.join(stats_dir, "map_mean.npy"))
+            with open(os.path.join(stats_dir, "idx_map_exception.pkl"), "rb") as file:
+                idx_exception = pickle.load(file)
+            probabilities = [numpy.load(os.path.join(
+                stats_dir, f"binary_probabilities_{float_to_str(m)}.npy")) for m in multipliers]
+            fix_id = (f"{float_to_str(bw_init)}_{float_to_str(10000.0)}"
+                      f"_s{reconstruct_kodak._step_key(model.step)}"
+                      f"_m{'-'.join(float_to_str(m) for m in multipliers)}_coded")
+            sweep(label, ("rates", "psnrs", "deads"),
+                  f"fix_gamma_{'learn' if learn_bw else 'fixed'}_{fix_id}",
+                  lambda: rd_sweep.fix_gamma(
+                      images, model.params, model.bin_widths, learn_bw, multipliers, BATCH,
+                      cache_dir, map_mean, probabilities, idx_exception, experiment_id=fix_id))
+        launches = dict(gk.LAUNCHES)
+        # 6 batches a point; 3 GDN + 3 IGDN a batch for a fixed-bin-width
+        # model, 2 + 2 for the learned one; 7 + 9 and 9 points.
+        nb_batches = images.shape[0] // BATCH
+        expected = nb_batches * (3 * (len(gammas) + len(multipliers)) + 2 * len(multipliers))
+        expect_launches("rd study", launches, {"gdn_f32": expected, "igdn_f32": expected})
+
+        # Bjontegaard against the committed JPEG2000 curve (images x points).
+        stem = ("jpeg2000_pillow_600-400-300-220-160-120-80-64-48-32-24-16-12-8_"
+                + RD_IMAGES_TAG)
+        (rates_j2k, psnrs_j2k) = (numpy.load(os.path.join(COMMITTED_RD, f"{kind}_{stem}.npy"))
+                                  for kind in ("rates", "psnrs"))
+        with open(os.path.join(COMMITTED_RD, "dictionary_bjontegaard.pkl"), "rb") as file:
+            committed = pickle.load(file)
+        for (label, arrays) in families.items():
+            curves = (rates_j2k.mean(axis=0), psnrs_j2k.mean(axis=0),
+                      arrays[0].mean(axis=1), arrays[1].mean(axis=1))
+            delta = compute_bjontegaard(*curves, warn=False)
+            quality = bjontegaard_fit_quality(*curves)
+            was = committed[f"{label} vs JPEG2000"]["delta_pct"]
+            print(f"  Bjontegaard {label} vs JPEG2000: {delta:+.4f} % bitrate (committed "
+                  f"{was:+.4f} %), fit reliable {quality['reliable']}, overlap "
+                  f"{quality['overlap_db']:.2f} dB")
+            if not abs(delta - was) <= RD_BJONTEGAARD_POINTS:
+                raise AssertionError(f"Bjontegaard {label}: {delta:+.4f} against {was:+.4f}")
+        print(f"  largest gaps against the committed curves: PSNR {worst['psnr']:.3e} dB "
+              f"[{RD_PSNR_DB}], a point's mean rate {worst['mean_rate']:.3e} [{RD_MEAN_RATE}], an "
+              f"image's rate {worst['image_rate']:.3e} [{RD_IMAGE_RATE}], dead-map counts equal "
+              f"{100 * worst['deads']:.2f} % [{100 * RD_DEADS_EQUAL:.0f} %]")
+
+        # The CLI itself, over the same cache directory: host plotting and
+        # anchor packages may be absent from a machine that has the card.
+        found = {name: importlib.util.find_spec(name) is not None
+                 for name in ("PIL", "matplotlib")}
+        print(f"  plotting and anchor packages: {found}")
+        if all(found.values()):
+            for kind in ("rates", "psnrs"):  # the committed anchor, as the CLI caches it
+                numpy.save(os.path.join(cache_dir, f"{kind}_{stem}.npy"),
+                           numpy.load(os.path.join(COMMITTED_RD, f"{kind}_{stem}.npy")))
+            path_images = os.path.join(cache_dir, "kodak.npy")
+            numpy.save(path_images, images)
+            printed = _run_printing(reconstruct_kodak.main, [
+                "--code_lossless", "--path_to_kodak", path_images, "--results_root",
+                RESULTS_ROOT, "--cache_dir", cache_dir, "--jpeg2000_backend", "pillow",
+                "--device", DEVICE])
+            if dict(gk.LAUNCHES) != launches:
+                raise AssertionError("reconstruct_kodak did not find the sweeps' cache")
+            with open(os.path.join(cache_dir, "dictionary_bjontegaard.pkl"), "rb") as file:
+                summaries = pickle.load(file)
+            if "4 RD curves written" not in printed or set(summaries) != {
+                    f"{label} vs JPEG2000" for label in families}:
+                raise AssertionError(f"reconstruct_kodak wrote {sorted(summaries)}")
+            for (key, summary) in summaries.items():
+                if not abs(summary["delta_pct"] - committed[key]["delta_pct"]) \
+                        <= RD_BJONTEGAARD_POINTS:
+                    raise AssertionError(f"reconstruct_kodak, {key}: {summary['delta_pct']}")
+            for name in ("rate_distortion.png", "nb_dead_learn_bw.png", "nb_dead_fixed_bw.png"):
+                if not os.path.getsize(os.path.join(cache_dir, name)) > 0:
+                    raise AssertionError(f"reconstruct_kodak drew no {name}")
+        else:
+            print("  cli/reconstruct_kodak not driven: it draws with matplotlib and codes "
+                  "the JPEG2000 anchor with PIL")
+    return {"rd study": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU.", file=sys.stderr)
+        return 1
+    if not os.path.isdir(PACKAGE):
+        print(f"chip_smoke: {PACKAGE} is missing; run this script from a checkout of the "
+              "repository.", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     card = card_line()
@@ -826,6 +1252,12 @@ def main():
         (launches, step_ms, step) = phase_training(kernel_results, learn_bin_widths)
         path_launches.update(launches)
         replays[next(iter(launches))] = (step_ms, step)
+    print("phase 6: the gamma ladder (cli/train_ladder, seven models)")
+    (launches, ladder_ms, ladder_step) = phase_ladder()
+    path_launches.update(launches)
+    replays["ladder training"] = (ladder_ms, ladder_step)
+    print("phase 7: the rate-distortion study (eval/rd_sweep on the committed models)")
+    path_launches.update(phase_rd_study())
     # Last of the device work: a refused capture may leave the context unusable.
     for (path, (step_ms, step)) in replays.items():
         (replayed_ms, reason) = replayed_step_ms(step)
@@ -834,7 +1266,7 @@ def main():
                  f"{replayed_ms:.3f} ms of device work against {step_ms:.3f} ms eager "
                  f"(device busy {100 * replayed_ms / step_ms:.1f} % of the eager step)"))
 
-    print("phase 6: kernel times")
+    print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
     # are per variant: a variant's shapes on one path share them).
     on_path = [("gdn_f32", "serving bf16w+", "H/4"), ("igdn_bf16", "serving bf16w+", "H/4"),
@@ -843,6 +1275,9 @@ def main():
     on_path += [(name, "training, fixed bin widths", shape)
                 for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
     on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
+    on_path += [(name, path, shape) for (path, shapes) in (("ladder training", TRAIN_SHAPES),
+                                                          ("rd study", SERVE_SHAPES))
+                for name in ("gdn_f32", "igdn_f32") for shape in shapes]
     kernels = []
     for (name, path, shape) in on_path:
         launches = path_launches[path][name]

@@ -48,6 +48,14 @@ def test_walk_sees_the_whole_port():
                  "train/checkpoint.py", "cli/train_eae.py", "cli/collect_stats.py",
                  "coding/stats.py", "utils/parsing.py", "eval/visualization.py"):
         assert f"{PORT}/{name}" in rel
+    # The rate-distortion study: ladder trainer, sweep, anchors, datasets.
+    for name in ("train/ladder.py", "cli/train_ladder.py", "eval/rd_sweep.py",
+                 "cli/reconstruct_kodak.py", "cli/create_datasets.py", "codecs/__init__.py",
+                 "codecs/common.py", "codecs/jpeg2000.py", "codecs/hevc.py", "codecs/jpeg.py",
+                 "data/kodak.py", "data/bsds.py", "data/imagenet.py", "data/download.py",
+                 "ops/metrics.py", "utils/image.py", "coding/native.py",
+                 "coding/compression.py"):
+        assert f"{PORT}/{name}" in rel
     assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.
     assert "autoencoder_based_image_compression_tpu.models".split(".")[0] in FORBIDDEN
