@@ -11,7 +11,11 @@ kernel's contraction. Needs one NVIDIA GPU and ``nvcc``:
 
 Prints the card, then one line per build with the replayed time of one
 launch (a CUDA graph of 24 launches over inputs that exceed the L2
-cache, median of 7), then the FMA rates.
+cache, median of 7), then the FMA rates, then what cuDNN's deterministic
+algorithms cost the decoder's two fp32 5 x 5 stride-2 transposed convs
+at the serving shapes (the engine holds the first of them to those
+algorithms, ``utils.device.deterministic_cudnn``), and whether each
+repeats its bits either way.
 """
 
 import ctypes
@@ -23,6 +27,10 @@ import numpy
 import torch
 
 from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel
+from autoencoder_based_image_compression_tpu_torch.utils.device import (
+    deterministic_cudnn,
+    disable_tf32,
+)
 
 ROWS = 4 * 512 * 768 // 16
 TILE_ROWS = 128
@@ -77,6 +85,47 @@ def _replayed_ms(launch, launches=24, repeats=7):
     return float(numpy.median(times))
 
 
+def _eager_ms(run, repeats=7):
+    """Median device time of ``run()`` in ms, CUDA events."""
+    run()
+    times = []
+    for _ in range(repeats):
+        (start, end) = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(numpy.median(times))
+
+
+def transposed_conv_times(batch_sizes=(4, 24), height=512, width=768):
+    """Prints, for the decoder's tconv_4 (input at H/16) and tconv_5
+    (input at H/8) in true fp32 on random operands, the time with
+    cuDNN's default algorithm and with the deterministic ones, and
+    whether two runs give the same bits."""
+    disable_tf32()
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    w = 0.05 * torch.randn(128, 128, 5, 5, device="cuda", generator=generator)
+    for batch_size in batch_sizes:
+        said = []
+        for (name, down) in (("tconv_4", 16), ("tconv_5", 8)):
+            x = torch.randn(batch_size, 128, height // down, width // down, device="cuda",
+                            generator=generator)
+
+            def run():
+                return torch.nn.functional.conv_transpose2d(x, w, stride=2)
+            default_ms = _eager_ms(run)
+            repeats = torch.equal(run(), run())
+            with deterministic_cudnn():
+                pinned_ms = _eager_ms(run)
+                pinned_repeats = torch.equal(run(), run())
+            said.append(f"{name} {default_ms:.4f} ms with cuDNN's default (repeats its bits: "
+                        f"{repeats}), {pinned_ms:.4f} ms deterministic ({pinned_repeats})")
+        print(f"  fp32 transposed convs, batch of {batch_size}: " + "; ".join(said))
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_probe: needs an NVIDIA GPU.", file=sys.stderr)
@@ -124,6 +173,7 @@ def main():
         flops = 2.0 * sms * threads * iters * peak.aeic_fma_peak_fmas_per_iter()
         print(f"  fp32 FMA rate, {sms} blocks of {threads} threads: "
               f"{flops / (1e-3 * _replayed_ms(launch)) / 1e12:.1f} TFLOP/s")
+    transposed_conv_times()
     return 0
 
 

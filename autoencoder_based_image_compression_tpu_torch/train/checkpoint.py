@@ -70,6 +70,27 @@ def params_from_jax(params_np):
     return params
 
 
+def int8_params_from_jax(qparams_np):
+    """The reference's int8 weight store, as numpy, -> this package's.
+
+    Each conv entry is ``{"int8": int8 kernel, "scale": fp32 scale with
+    kept dimensions}`` in the reference's layouts; both take the same
+    permute as a kernel, so a scale stays beside its output channel
+    (axis 0 for an encoder kernel, axis 1 for a decoder one). Everything
+    else goes through :func:`params_from_jax`.
+    """
+    store = {name: value for (name, value) in qparams_np.items() if isinstance(value, dict)}
+    qparams = params_from_jax({name: value for (name, value) in qparams_np.items()
+                               if name not in store})
+    for (name, value) in store.items():
+        qparams[name] = {
+            "int8": torch.from_numpy(numpy.array(value["int8"], dtype=numpy.int8)
+                                     ).permute(3, 2, 0, 1).contiguous(),
+            "scale": torch.from_numpy(numpy.array(value["scale"], dtype=numpy.float32)
+                                      ).permute(3, 2, 0, 1).contiguous()}
+    return qparams
+
+
 def params_to_jax(params):
     """The inverse of :func:`params_from_jax`: a dict of tensors in this
     package's layouts (on any device) -> numpy arrays in the

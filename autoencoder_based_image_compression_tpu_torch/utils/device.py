@@ -5,7 +5,16 @@ Asking for ``cuda`` without a card raises: nothing falls back to the
 CPU silently.
 """
 
+import contextlib
+import threading
+
 import torch
+
+# cuDNN's flags belong to the process: ``deterministic_cudnn`` counts the
+# contexts open on any thread and restores the flag when the last leaves.
+_DETERMINISTIC_LOCK = threading.Lock()
+_deterministic_depth = 0
+_deterministic_before = False
 
 
 def disable_tf32():
@@ -19,6 +28,39 @@ def disable_tf32():
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """While open, cuDNN takes only algorithms that give the same bits
+    on every run (``torch.backends.cudnn.deterministic``); the flag is
+    put back on leaving.
+
+    cuDNN's default algorithm for an fp32 transposed conv (its
+    backward-data pass) sums with atomics, so two runs on the same input
+    differ in the last bits. The serving engine runs its first
+    transposed conv under this context (``engine/quantized.py``); the
+    fp32 parity transforms and training do not: there the deterministic
+    algorithms cost 18 % of a training step's device work and 8x of an
+    fp32 decode on an H100. The flag belongs to the process, not to a
+    thread, so contexts may nest and may overlap across threads: the
+    first to enter saves the flag and the last to leave puts it back,
+    whatever the order in which they leave. While any is open, the other
+    threads' convolutions take the deterministic algorithms too.
+    """
+    global _deterministic_depth, _deterministic_before
+    with _DETERMINISTIC_LOCK:
+        if _deterministic_depth == 0:
+            _deterministic_before = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+        _deterministic_depth += 1
+    try:
+        yield
+    finally:
+        with _DETERMINISTIC_LOCK:
+            _deterministic_depth -= 1
+            if _deterministic_depth == 0:
+                torch.backends.cudnn.deterministic = _deterministic_before
 
 
 def resolve_device(device="cuda"):

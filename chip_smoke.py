@@ -6,15 +6,16 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
-(``make``) from the sources in the checkout, then runs nine phases:
+(``make``) from the sources in the checkout, then runs these phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. every kernel variant against its plain PyTorch version at the main
    paths' shapes (serving, a 4 x 512 x 768 batch: rows 98,304 at H/4 and
    24,576 at H/8 for GDN/IGDN in fp32 and bf16, 6,144 at H/16 for
-   GDN/IGDN in fp32 and GDN+quantise; training, a 10 x 256 x 256 batch:
-   rows 40,960, 10,240 and 2,560 for GDN/IGDN in fp32), and at ragged row
-   counts; then the gradient of the fp32 kernel's ``GdnFunction`` against
+   GDN/IGDN in fp32 and GDN+quantise; the bench's batch of 24: rows
+   589,824 and 147,456 for all four, 36,864 for IGDN in fp32; training, a
+   10 x 256 x 256 batch: rows 40,960, 10,240 and 2,560 for GDN/IGDN in
+   fp32), and at ragged row counts; then the gradient of the fp32 kernel's ``GdnFunction`` against
    autograd through the plain version;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
@@ -57,10 +58,25 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    the Bjontegaard savings against the committed JPEG2000 curve are
    within 0.5 points of the committed ones. ``cli/reconstruct_kodak`` is
    driven too when PIL and matplotlib are there (printed either way);
+7b. the rest of serving and the bench: "bf16w" and "int8" through
+   ``PipelinedCompressor`` (verified; both are expected to miss the gate,
+   printed either way); ``fast_decode_fixed_bw`` at tails 0 and 3 against
+   the fp32 decode (tail 3 within 1e-3 of the pixel range, tail 0 no
+   image more than 0.5 dB under it); three "bf16w+" decodes of the same
+   latents equal; ``fast_roundtrip_scan`` eager against its CUDA graph
+   (equal bit for bit, ms per K-batch program both ways);
+   ``stream_roundtrip`` against ``roundtrip_batched`` (equal); the gate
+   table through the scan path (fails unless the scan path's "bf16w+"
+   mix is inside 0.05 dB at multipliers 1, 4 and 10); the serving bench
+   in-process with 3 repeats, its JSON on a line of its own; the roofline
+   report for "bf16w+" and fp32 against measured matmul ceilings;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 9. the result line ``{"ok": true, "device": {...}}``, last.
 
 Launch counts are set to 0 just before each path and read just after.
+A wrapper counts where Python calls it, so a CUDA graph counts at its
+warm-up batch and its capture and not at a replay: the expectations say
+which numbers are per capture.
 Any failure exits non-zero; so does a machine without a card. Imports
 nothing of JAX.
 """
@@ -76,6 +92,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -91,32 +108,23 @@ RESULTS_ROOT = os.path.join(REPO, "results", "eae")
 COMMITTED_RD = os.path.join(RESULTS_ROOT, "kodak_rd")
 KERNEL_SOURCE = "autoencoder_based_image_compression_tpu_torch/csrc/gdn.cu"
 TPU_KERNELS = "autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py"
-GATE_DB = 0.05
-GATE_MULTIPLIERS = (1.0, 4.0, 10.0)
 # The GDN launches of one batch on each serving path: (variant, shape).
+_ALL_BF16 = (("gdn_bf16", "H/4"), ("gdn_bf16", "H/8"), ("igdn_bf16", "H/8"),
+             ("igdn_bf16", "H/4"))
 GDN_SITES = {
     "bf16w+": (("gdn_f32", "H/4"), ("gdn_f32", "H/8"), ("igdn_f32", "H/8"),
                ("igdn_bf16", "H/4")),
     "fp32": (("gdn_f32", "H/4"), ("gdn_f32", "H/8"), ("igdn_f32", "H/8"),
              ("igdn_f32", "H/4")),
-}
-# Decoder precision mixes of the gate table: (integer symbols into folded
-# parameters?, fast_decode's keywords).
-GATE_MIXES = {
-    "a: fp32 head, rounded latents": (False, dict(fp32_head=True)),
-    "b: folded integer symbols, tail 0 (the reference's measurement)": (True, dict()),
-    "b+: folded integer symbols, fp32 head": (True, dict(fp32_head=True)),
-    "c: fp32 head, exact latents (bf16w+)": (False, dict(fp32_head=True, exact_latents=True)),
-    "d: c + fp32 IGDN_6": (False, dict(fp32_head=True, exact_latents=True,
-                                        fp32_igdn6=True)),
-    "tail 0": (False, dict()), "tail 1": (False, dict(fp32_tail=1)),
-    "tail 2": (False, dict(fp32_tail=2)), "tail 3 (all fp32)": (False, dict(fp32_tail=3)),
+    "bf16w": _ALL_BF16, "int8": _ALL_BF16,
 }
 BF16_ULP = 2.0 ** -7
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 (BATCH, HEIGHT, WIDTH) = (4, 512, 768)
+# The serving bench runs the 24 images as one batch, K = 8 batches a program.
+(BENCH_BATCH, SCAN_BATCHES) = (24, 8)
 # Timed launches walk round this many bytes of inputs and outputs at least
 # (the L2 cache holds 50 MB), and the ragged check adds these rows to H/4.
 TIMING_FOOTPRINT_BYTES = 128 << 20
@@ -128,14 +136,20 @@ DEVICE = "cuda"
 (TRAIN_IMAGES, TRAIN_EPOCHS, EXTRA_IMAGES, SERVED_IMAGES) = (120, 3, 20, 4)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256,
+        "B/4": BENCH_BATCH * HEIGHT * WIDTH // 16, "B/8": BENCH_BATCH * HEIGHT * WIDTH // 64,
+        "B/16": BENCH_BATCH * HEIGHT * WIDTH // 256,
         "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
         "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256}
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
 SERVE_SHAPES = ("H/4", "H/8", "H/16")
+BENCH_SHAPES = ("B/4", "B/8")
 # The ladder: one epoch of 12 shared batches a part; the single-model
 # comparison runs 3 steps; the RD study's gates against the committed curves.
 (LADDER_IMAGES, LADDER_COMPARED_STEPS) = (120, 3)
 RD_IMAGES_TAG = "6c3a64d647"
+# The all-bf16 fixed-bin-width fast decode: no image further under the
+# fp32 decode of the same symbols than this.
+FIXED_BW_TAIL0_DB = 0.5
 (RD_PSNR_DB, RD_MEAN_RATE, RD_IMAGE_RATE, RD_DEADS_EQUAL, RD_BJONTEGAARD_POINTS) = (
     0.05, 0.01, 0.02, 0.99, 0.5)
 # The GDN launches of one train_step: (variant, shape). The density phase
@@ -150,10 +164,12 @@ TRAIN_SITES = {
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
-    "gdn_f32": (torch.float32, False, False, (LEARNED, 1), SERVE_SHAPES + TRAIN_SHAPES, 26),
-    "igdn_f32": (torch.float32, True, False, (LEARNED, 6), SERVE_SHAPES + TRAIN_SHAPES, 26),
-    "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8"), 26),
-    "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6), ("H/4", "H/8"), 26),
+    "gdn_f32": (torch.float32, False, False, (LEARNED, 1),
+                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES, 26),
+    "igdn_f32": (torch.float32, True, False, (LEARNED, 6),
+                 SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",), 26),
+    "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8") + BENCH_SHAPES, 26),
+    "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6), ("H/4", "H/8") + BENCH_SHAPES, 26),
     "gdn_quantize_f32": (torch.float32, False, True, (FIXED, 3), ("H/16",), 44),
 }
 
@@ -294,6 +310,8 @@ def phase_kernels():
         ragged = {"ragged": ROWS["H/4"] + RAGGED_EXTRA}
         if "H/16" in shapes:
             ragged["ragged H/16"] = ROWS["H/16"] + RAGGED_EXTRA
+        if "B/4" in shapes:
+            ragged["ragged B/4"] = ROWS["B/4"] + RAGGED_EXTRA
         for shape in tuple(ragged) + shapes:
             rows = ragged.get(shape) or ROWS[shape]
             (x, *params) = kernel_inputs(name, rows, seed)
@@ -302,7 +320,7 @@ def phase_kernels():
             torch.cuda.synchronize()
             (max_abs, max_rel, tolerance, detail) = check_kernel(
                 name, rows, got, expected, params[-1])
-            head = (f"  {name:17s} rows {rows:6d} ({shape:6s}): max abs err {max_abs:.3e}, "
+            head = (f"  {name:17s} rows {rows:6d} ({shape:11s}): max abs err {max_abs:.3e}, "
                     f"max rel err {max_rel:.3e} [{tolerance}] {detail}")
             if shape in ragged:
                 print(head)
@@ -324,18 +342,9 @@ def phase_kernels():
 
 
 def load_model(exp_dir):
-    from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
-        load_params_artifact,
-        params_from_jax,
-    )
+    from autoencoder_based_image_compression_tpu_torch.eval import workload
 
-    (params_np, bin_widths) = load_params_artifact(os.path.join(exp_dir, "params_trained.npz"))
-    stats = os.path.join(exp_dir, "statistics")
-    map_mean = numpy.load(os.path.join(stats, "map_mean.npy"))
-    probabilities = numpy.load(os.path.join(stats, "binary_probabilities_1.npy"))
-    with open(os.path.join(stats, "idx_map_exception.pkl"), "rb") as file:
-        idx_exc = pickle.load(file)
-    return (params_from_jax(params_np), bin_widths, map_mean, probabilities, idx_exc)
+    return workload.load_model(exp_dir)
 
 
 def expect_launches(path, counts, expected):
@@ -349,6 +358,8 @@ def expect_launches(path, counts, expected):
 def phase_serving(kernel_results):
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
     from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
+    from autoencoder_based_image_compression_tpu_torch.eval import gate_probe
+    from autoencoder_based_image_compression_tpu_torch.eval.gate_probe import GATE_DB
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
@@ -410,19 +421,17 @@ def phase_serving(kernel_results):
           f"total bits differ by {rate_gap / int(runs['fp32'][1].sum()):.3e}")
     if deltas.min() < -GATE_DB:
         raise AssertionError(f"bf16w+ misses the {GATE_DB} dB gate: {deltas.min():+.4f} dB")
-    table = gate_table(params, bin_widths, map_mean, images)
+    table = gate_probe.gate_table(params, bin_widths, map_mean, images, through="pipeline",
+                                  batch_size=BATCH, device=DEVICE)
     # The row of the mix that PipelinedCompressor serves with.
-    serving = {key: value for (key, value) in dict(
-        fp32_tail=engine.BF16WPLUS_DEC_TAIL, fp32_head=engine.BF16WPLUS_DEC_HEAD,
-        exact_latents=engine.BF16WPLUS_DEC_EXACT_LATENTS).items() if value}
-    (label,) = [label for (label, (folded, mix)) in GATE_MIXES.items()
-                if not folded and mix == serving]
-    for (multiplier, delta) in table[label].items():
-        if not delta >= -GATE_DB:
-            raise AssertionError(f"bf16w+ misses the {GATE_DB} dB gate at x{multiplier:g}: "
-                                 f"{delta:+.4f} dB")
+    label = gate_probe.mix_label("pipeline", "bf16", dict(
+        fp32_enc_tail=engine.BF16WPLUS_ENC_TAIL, fp32_tail=engine.BF16WPLUS_DEC_TAIL,
+        fp32_head=engine.BF16WPLUS_DEC_HEAD, exact_latents=engine.BF16WPLUS_DEC_EXACT_LATENTS))
+    if not gate_probe.holds_gate(table[label]):
+        raise AssertionError(f"bf16w+ ({label}) misses the {GATE_DB} dB gate: {table[label]}")
     print(f"  bf16w+ ({label}) holds the {GATE_DB} dB gate at x1, x4 and x10")
-    return {"serving bf16w+": runs["bf16w+"][2], "serving fp32": runs["fp32"][2]}
+    return ({"serving bf16w+": runs["bf16w+"][2], "serving fp32": runs["fp32"][2]},
+            table, runs["fp32"][0])
 
 
 def device_times(compressor, batch_uint8, coder_s, kernel_results, sites, repeats=5):
@@ -441,53 +450,6 @@ def device_times(compressor, batch_uint8, coder_s, kernel_results, sites, repeat
           f"{encode_ms:.4f} ms, decode {decode_ms:.4f} ms, GDN kernels {gdn_ms:.4f} ms "
           f"({100 * gdn_ms / device_ms:.1f} % of {device_ms:.4f} ms); coder on the host "
           f"{1e3 * coder_s:.3f} ms per batch ({1e3 * coder_s / device_ms:.1f}x the device)")
-
-
-def gate_table(params, bin_widths, map_mean, images):
-    """Worst-image PSNR delta against the fp32 decode for the decoder's
-    precision mixes at multipliers 1, 4 and 10 (symbols from the fp32
-    encoder). Returns ``{label: {multiplier: worst delta}}``.
-
-    The "folded" rows are the reference's own gate measurement: integer
-    symbols ``round(y / bw)`` (no map means) into a decoder whose first
-    kernel holds the bin widths, against the fp32 decode of ``sym * bw``.
-    The other rows are the pipeline's call on ``sym * bw + mean``.
-    """
-    from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
-    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
-    from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
-    from autoencoder_based_image_compression_tpu_torch.ops.quantization import cast_bt601
-
-    params = {k: v.cuda() for (k, v) in params.items()}
-    mean = torch.from_numpy(map_mean.astype(numpy.float32)).cuda()
-    batches = [torch.from_numpy(images[i:i + BATCH].astype(numpy.float32)).cuda()
-               for i in range(0, images.shape[0], BATCH)]
-    latents = [conv_eae.encode(params, batch, True) for batch in batches]
-
-    def psnrs(decode, inputs):
-        recs = numpy.concatenate([cast_bt601(decode(y)).cpu().numpy() for y in inputs])
-        return numpy.array([psnr_2d(images[i, :, :, 0], recs[i, :, :, 0])
-                            for i in range(images.shape[0])])
-
-    table = {label: {} for label in GATE_MIXES}
-    for multiplier in GATE_MULTIPLIERS:
-        bw = torch.from_numpy(bin_widths * multiplier).cuda()
-        symbols = [torch.round(y / bw) for y in latents]
-        quantized = [torch.round((y - mean) / bw) * bw + mean for y in latents]
-        fp32_decode = lambda y: conv_eae.decode(params, y, True)  # noqa: E731
-        reference = {False: psnrs(fp32_decode, quantized),
-                     True: psnrs(fp32_decode, [sym * bw for sym in symbols])}
-        folded_params = engine.fold_bin_widths_into_decoder(params, bw)
-        for (label, (folded, mix)) in GATE_MIXES.items():
-            qp = engine.bf16_weight_params(folded_params if folded else params,
-                                           fp32_tail=mix.get("fp32_tail", 0))
-            got = psnrs(lambda y: engine.fast_decode(qp, y, **mix),
-                        symbols if folded else quantized)
-            table[label][multiplier] = float((got - reference[folded]).min())
-    for (label, row) in table.items():
-        print(f"  gate table, worst-image delta (dB), {label}: "
-              + "; ".join(f"x{m:g} {d:+.4f}" for (m, d) in row.items()))
-    return table
 
 
 def phase_fixed_bw():
@@ -532,6 +494,264 @@ def phase_fixed_bw():
     if rec_psnr < 60.0 or psnrs.min() < 20.0:
         raise AssertionError("fixed-bw roundtrip disagrees with its unfused reference")
     return {"fixed-bw roundtrip": launches}
+
+
+def phase_serving_variants(kernel_results, pipeline_table, psnrs_fp32):
+    """The rest of serving at full width: the "bf16w" and "int8" variants,
+    the fixed-bin-width fast decode, the K-batch round trip eager and as
+    a CUDA graph, the streaming batcher, the gate through the scan path,
+    the serving bench and the roofline report. Returns each path's
+    launch counts."""
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
+    from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
+    from autoencoder_based_image_compression_tpu_torch.eval import (
+        gate_probe,
+        roofline,
+        serving_bench,
+    )
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
+    from autoencoder_based_image_compression_tpu_torch.ops.quantization import cast_bt601
+    from autoencoder_based_image_compression_tpu_torch.parallel.continuous_batching import (
+        ContinuousBatcher,
+        stream_roundtrip,
+    )
+    from autoencoder_based_image_compression_tpu_torch.parallel.inference import (
+        PipelinedCompressor,
+        make_codec_fns,
+        roundtrip_batched,
+    )
+    from autoencoder_based_image_compression_tpu_torch.utils.device import deterministic_cudnn
+
+    (params, bin_widths, map_mean, probabilities, idx_exc) = load_model(LEARNED)
+    images = synthetic_kodak(seed=0)
+    nb_batches = -(-images.shape[0] // BATCH)
+    paths = {}
+
+    def image_psnrs(recs_u8, originals=images):
+        return numpy.array([psnr_2d(originals[i, :, :, 0], recs_u8[i, :, :, 0])
+                            for i in range(recs_u8.shape[0])])
+
+    # --- "bf16w" and "int8" through the pipeline, true bitstreams, verified.
+    for (fast_path, label) in (("bf16w", "bf16w (the reference's mix as it is)"),
+                               ("int8", "int8")):
+        compressor = PipelinedCompressor(params, bin_widths, True, probabilities, map_mean,
+                                         idx_map_exception=idx_exc, batch_size=BATCH,
+                                         fast_path=fast_path, verify=True, reconstruct=True,
+                                         device=DEVICE)
+        compressor(images[:BATCH])  # warm-up: cuDNN plans, pinned buffers
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        (recs, bits) = compressor(images)
+        torch.cuda.synchronize()
+        paths[f"serving {fast_path}"] = dict(gk.LAUNCHES)
+        if recs.shape != images.shape or recs.dtype != numpy.uint8 or not numpy.all(bits > 0):
+            raise AssertionError(f"{fast_path}: reconstructions {recs.shape} {recs.dtype}")
+        psnrs = image_psnrs(recs)
+        timing = compressor.last_timing
+        row = pipeline_table[label]
+        print(f"  serving {fast_path}: {bits.sum() / images[..., 0].size:.4f} bpp, PSNR mean "
+              f"{psnrs.mean():.4f} dB (min {psnrs.min():.4f}), worst image against fp32 "
+              f"through the pipeline {(psnrs - psnrs_fp32).min():+.4f} dB, "
+              f"{images[..., 0].size / timing['wall'] / 1e6:.3f} Mpix/s end to end, "
+              f"last_timing {json.dumps(timing)}; gate row "
+              + "; ".join(f"x{m:g} {d:+.4f}" for (m, d) in row.items())
+              + (": holds" if gate_probe.holds_gate(row) else ": misses")
+              + f" the {gate_probe.GATE_DB} dB gate (a miss is expected of this variant)")
+        expect_launches(f"serving {fast_path}", paths[f"serving {fast_path}"],
+                        {"gdn_bf16": 2 * nb_batches, "igdn_bf16": 2 * nb_batches})
+        device_times(compressor, images[:BATCH], timing["coder"] / nb_batches, kernel_results,
+                     GDN_SITES[fast_path])
+
+    # --- the fixed-bin-width fast decode against the fp32 decode.
+    (fixed, fixed_bw, _, _, _) = load_model(FIXED)
+    fixed = {name: value.cuda() for (name, value) in fixed.items()}
+    bw_fixed = torch.from_numpy(fixed_bw).cuda()
+    for (batch_size, path) in ((BATCH, "fixed-bw fast decode"),
+                               (BENCH_BATCH, "fixed-bw fast decode, batch of 24")):
+        served = images[:2 * batch_size] if batch_size == BATCH else images
+        batches = [torch.from_numpy(served[i:i + batch_size].astype(numpy.float32)).cuda()
+                   for i in range(0, served.shape[0], batch_size)]
+        symbols = [torch.round(conv_eae.encode(fixed, batch, False) / bw_fixed)
+                   for batch in batches]
+        reference = [conv_eae.decode(fixed, sym * bw_fixed, False) for sym in symbols]
+        psnrs_reference = image_psnrs(
+            numpy.concatenate([cast_bt601(rec).cpu().numpy() for rec in reference]), served)
+        for fp32_tail in ((0, 3) if batch_size == BATCH else (0,)):
+            qparams = engine.bf16_weight_params(fixed, fp32_tail=fp32_tail)
+            gk.reset_launch_counts()
+            got = [engine.fast_decode_fixed_bw(qparams, sym, bw_fixed, fp32_tail=fp32_tail)
+                   for sym in symbols]
+            torch.cuda.synchronize()
+            launches = dict(gk.LAUNCHES)
+            gap = max(float((a - b).abs().max()) for (a, b) in zip(got, reference))
+            psnrs = image_psnrs(
+                numpy.concatenate([cast_bt601(rec).cpu().numpy() for rec in got]), served)
+            print(f"  fast_decode_fixed_bw, tail {fp32_tail}, batch {batch_size}: largest pixel "
+                  f"gap against the fp32 decode {gap:.3e}; worst image's PSNR delta "
+                  f"{(psnrs - psnrs_reference).min():+.4f} dB (mean PSNR {psnrs.mean():.4f} dB)")
+            if fp32_tail == 3:
+                # All fp32 on both sides: 1e-3 of the pixel range.
+                if not gap <= 1e-3 * 255.0:
+                    raise AssertionError(f"fast_decode_fixed_bw at tail 3: gap {gap}")
+                expect_launches("fixed-bw fast decode, tail 3", launches,
+                                {"igdn_f32": 3 * len(batches)})
+            else:
+                # Every image within 0.5 dB under the fp32 decode of the
+                # same symbols (this card's runs read +0.0007 dB for the
+                # worst): a stage in the wrong dtype or place falls out.
+                if not (psnrs - psnrs_reference).min() >= -FIXED_BW_TAIL0_DB:
+                    raise AssertionError(
+                        f"fast_decode_fixed_bw at tail 0: PSNR deltas against the fp32 decode "
+                        f"{psnrs - psnrs_reference} [{-FIXED_BW_TAIL0_DB} dB]")
+                paths[path] = launches
+                expect_launches(path, launches, {"igdn_f32": len(batches),
+                                                 "igdn_bf16": 2 * len(batches)})
+
+    # --- the serving decode repeats its bits (its first transposed conv
+    # is held to cuDNN's deterministic algorithms; what that costs is
+    # timed by ``eval/kernel_probe.py``).
+    device_params = {name: value.cuda() for (name, value) in params.items()}
+    bw = torch.from_numpy(bin_widths).cuda()
+    qparams = engine.bf16_weight_params(device_params)
+    for batch_size in (BATCH, BENCH_BATCH):
+        batch = torch.from_numpy(images[:batch_size].astype(numpy.float32)).cuda()
+        quantized = bw * torch.round(conv_eae.encode(device_params, batch, True) / bw)
+        decodes = [engine.fast_decode(qparams, quantized, fp32_head=True, exact_latents=True)
+                   for _ in range(3)]
+        if not all(torch.equal(decodes[0], other) for other in decodes[1:]):
+            raise AssertionError("two bf16w+ decodes of the same latents differ")
+        print(f"  batch of {batch_size}: three bf16w+ decodes of the same latents equal bit "
+              f"for bit")
+
+    # --- the K-batch round trip: eager against its CUDA graph.
+    (qparams, qfolded, knobs) = engine.scan_variant(device_params, bw, "bf16w+")
+    for batch_size in (BATCH, BENCH_BATCH):
+        stack = torch.from_numpy(serving_bench.distinct_stack(
+            images[:batch_size].astype(numpy.float32), SCAN_BATCHES)).cuda()
+        engine.fast_roundtrip_scan(qparams, qfolded, stack[:1], bw, **knobs)  # warm-up
+        gk.reset_launch_counts()
+        eager = engine.fast_roundtrip_scan(qparams, qfolded, stack, bw, **knobs)
+        torch.cuda.synchronize()
+        per_batch = {"gdn_f32": 2, "igdn_f32": 1, "igdn_bf16": 1}
+        path = f"scan bf16w+, batch of {batch_size}"
+        paths[path] = dict(gk.LAUNCHES)
+        expect_launches(f"{path}, eager", paths[path],
+                        {name: n * SCAN_BATCHES for (name, n) in per_batch.items()})
+        gk.reset_launch_counts()
+        captured = engine.fast_roundtrip_scan(qparams, qfolded, stack, bw, graph=True, **knobs)
+        # Per capture: one warm-up batch and the K captured batches.
+        expect_launches(f"{path}, the graph's capture", dict(gk.LAUNCHES),
+                        {name: n * (SCAN_BATCHES + 1) for (name, n) in per_batch.items()})
+        gk.reset_launch_counts()
+        replayed = engine.fast_roundtrip_scan(qparams, qfolded, stack, bw, graph=True, **knobs)
+        torch.cuda.synchronize()
+        expect_launches(f"{path}, a replay (no Python call, so no count)", dict(gk.LAUNCHES), {})
+        for (name, got) in (("captured", captured), ("replayed", replayed)):
+            if not (torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])):
+                raise AssertionError(f"{path}: the {name} graph differs from the eager loop")
+        if not bool(torch.isfinite(eager[0]).all()) or eager[0].shape != stack.shape:
+            raise AssertionError(f"{path}: reconstructions {eager[0].shape}")
+        eager_ms = _median_ms(lambda: engine.fast_roundtrip_scan(
+            qparams, qfolded, stack, bw, **knobs), 1, 7)
+        graph_ms = _median_ms(lambda: engine.fast_roundtrip_scan(
+            qparams, qfolded, stack, bw, graph=True, **knobs), 1, 7)
+        mpix = SCAN_BATCHES * batch_size * HEIGHT * WIDTH / 1e3
+        print(f"  fast_roundtrip_scan bf16w+, {SCAN_BATCHES} batches of {batch_size}: graph and "
+              f"eager equal bit for bit; {eager_ms:.3f} ms eager ({mpix / eager_ms:.1f} Mpix/s), "
+              f"{graph_ms:.3f} ms replayed with its copies in and out "
+              f"({mpix / graph_ms:.1f} Mpix/s): eager / graph {eager_ms / graph_ms:.3f}")
+        del eager, captured, replayed, stack
+        engine.clear_scan_graphs()
+
+    # --- the streaming batcher against the batched round trip.
+    # Both run the fp32 transforms, whose transposed convs do not repeat
+    # their bits under cuDNN's default: held to the deterministic
+    # algorithms the two are equal, which is what the batcher can add.
+    gk.reset_launch_counts()
+    with deterministic_cudnn():
+        streamed = stream_roundtrip(params, bin_widths, images, BATCH, learn_bin_widths=True,
+                                    device=DEVICE)
+        paths["stream roundtrip"] = dict(gk.LAUNCHES)
+        batched = roundtrip_batched(params, images, bin_widths, True, batch_size=BATCH,
+                                    device=DEVICE)
+    expect_launches("stream roundtrip", paths["stream roundtrip"],
+                    {"gdn_f32": 2 * nb_batches, "igdn_f32": 2 * nb_batches})
+    default = roundtrip_batched(params, images, bin_widths, True, batch_size=BATCH,
+                                device=DEVICE)
+    if streamed.shape != batched.shape or not numpy.array_equal(streamed, batched):
+        raise AssertionError("stream_roundtrip differs from roundtrip_batched")
+    print(f"  stream_roundtrip equals roundtrip_batched on {images.shape[0]} images (cuDNN's "
+          f"deterministic algorithms; its default moves the fp32 reconstructions by "
+          f"{float(numpy.abs(default - batched).max()):.3e} of a pixel level at most)")
+    # Four producer threads into one batcher: PyTorch's current stream
+    # belongs to a thread, so the batcher is given the stream to queue on.
+    stream = torch.cuda.Stream()
+    seen = set()
+    (encode_fn, decode_fn, put) = make_codec_fns(True, DEVICE)
+
+    def batch_fn(batch):
+        seen.add(torch.cuda.current_stream().cuda_stream)
+        return decode_fn(device_params, encode_fn(device_params, put(batch)), bw)
+
+    batcher = ContinuousBatcher(batch_fn, BATCH, max_in_flight=2, stream=stream)
+    threads = [threading.Thread(target=lambda k=k: [
+        batcher.submit(i, images[i].astype(numpy.float32)) for i in range(k, images.shape[0], 4)])
+        for k in range(4)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=120)
+    results = batcher.flush()
+    threaded = numpy.stack([results[i] for i in range(images.shape[0])])
+    gap = float(numpy.abs(threaded - batched).max())
+    print(f"  ContinuousBatcher, 4 producer threads on one stream: {len(results)} images, "
+          f"streams seen {len(seen)}, largest pixel gap against roundtrip_batched {gap:.3e} "
+          f"[1e-3 of the pixel range: other batch neighbours, cuDNN's default algorithms]")
+    if any(thread.is_alive() for thread in threads) or seen != {stream.cuda_stream} \
+            or not gap <= 1e-3 * 255.0:
+        raise AssertionError("the threaded batcher lost an image, left its stream or disagrees")
+
+    # --- the gate through the scan path.
+    table = gate_probe.gate_table(params, bin_widths, map_mean, images, through="scan",
+                                  batch_size=BATCH, device=DEVICE)
+    label = gate_probe.mix_label("scan", "bf16", engine.BF16WPLUS_SCAN_MIX)
+    if not gate_probe.holds_gate(table[label]):
+        raise AssertionError(f"the scan path's bf16w+ ({label}) misses the "
+                             f"{gate_probe.GATE_DB} dB gate: {table[label]}")
+    cheapest = next(row for (row, (store, _)) in gate_probe.GATE_MIXES["scan"].items()
+                    if store == "bf16" and gate_probe.holds_gate(table[row]))
+    print(f"  the scan path's bf16w+ ({label}) holds the {gate_probe.GATE_DB} dB gate at x1, "
+          f"x4 and x10; the cheapest row that holds it: {cheapest}")
+
+    # --- the serving bench, in-process, and the roofline report.
+    gk.reset_launch_counts()
+    result = serving_bench.run(device=DEVICE, repeats=3)
+    paths["serving bench"] = dict(gk.LAUNCHES)
+    print(f"  launches in the serving bench (a graph counts at its capture only): "
+          f"{paths['serving bench']}")
+    print("  serving bench (3 repeats):")
+    print(json.dumps(result))
+    if not (result["gate_pass_worst_0p05db"]["bf16w+"] and result["headline_path"] == "bf16w+"
+            and result["value"] > 0.0 and result["weights"] == "trained"):
+        raise AssertionError("the serving bench's headline is not the gated bf16w+")
+    report = roofline.roofline_report(params, images, bin_widths, repeats=3,
+                                      weight_mode="bf16w+", device=DEVICE)
+    print(f"  roofline, 24 images as one batch, 4 in flight: {report['flops_per_pixel']:.0f} "
+          f"FLOP a pixel; fp32 path {report['mpix_per_s_parity']:.1f} Mpix/s = "
+          f"{report['achieved_flops_per_s_parity'] / 1e12:.2f} TFLOP/s, "
+          f"{100 * report['tensor_core_utilization_parity']:.1f} % of the measured true-fp32 "
+          f"matmul ceiling of {report['peak_flops_per_s_parity'] / 1e12:.1f} TFLOP/s; bf16w+ "
+          f"{report['mpix_per_s_fast']:.1f} Mpix/s = "
+          f"{report['achieved_flops_per_s_fast'] / 1e12:.2f} TFLOP/s, "
+          f"{100 * report['tensor_core_utilization_fast']:.1f} % of the measured bf16 ceiling "
+          f"of {report['peak_flops_per_s_fast'] / 1e12:.1f} TFLOP/s; PSNR between the paths "
+          f"{report['psnr_fast_vs_parity_db']:.2f} dB")
+    if not all(numpy.isfinite(value) for value in report.values()
+               if isinstance(value, float)):
+        raise AssertionError(f"roofline report {report}")
+    return paths
 
 
 def _gap_to_max(got, expected):
@@ -1243,7 +1463,7 @@ def main():
     kernel_results = phase_kernels()
     phase_gradient()
     print("phase 3: serving (PipelinedCompressor)")
-    path_launches = phase_serving(kernel_results)
+    (path_launches, pipeline_table, psnrs_fp32) = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
     path_launches.update(phase_fixed_bw())
     print("phase 5: training (pre-fit, train_step, checkpoint, collect_stats, serve)")
@@ -1266,12 +1486,29 @@ def main():
                  f"{replayed_ms:.3f} ms of device work against {step_ms:.3f} ms eager "
                  f"(device busy {100 * replayed_ms / step_ms:.1f} % of the eager step)"))
 
+    print("phase 7b: the rest of serving (bf16w, int8, fixed-bw fast decode, scan graph, "
+          "streaming) and the serving bench")
+    path_launches.update(phase_serving_variants(kernel_results, pipeline_table, psnrs_fp32))
+
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
     # are per variant: a variant's shapes on one path share them).
     on_path = [("gdn_f32", "serving bf16w+", "H/4"), ("igdn_bf16", "serving bf16w+", "H/4"),
                ("igdn_f32", "serving fp32", "H/4"),
                ("gdn_quantize_f32", "fixed-bw roundtrip", "H/16")]
+    on_path += [("gdn_bf16", "serving bf16w", "H/4"), ("gdn_bf16", "serving bf16w", "H/8"),
+                ("igdn_bf16", "serving bf16w", "H/8"), ("gdn_bf16", "serving int8", "H/4"),
+                ("igdn_bf16", "serving int8", "H/8"),
+                ("igdn_f32", "fixed-bw fast decode", "H/16"),
+                ("igdn_f32", "fixed-bw fast decode, batch of 24", "B/16"),
+                ("igdn_bf16", "fixed-bw fast decode, batch of 24", "B/8"),
+                ("gdn_f32", "scan bf16w+, batch of 24", "B/4"),
+                ("gdn_f32", "scan bf16w+, batch of 24", "B/8"),
+                ("igdn_f32", "scan bf16w+, batch of 24", "B/8"),
+                ("igdn_bf16", "scan bf16w+, batch of 24", "B/4"),
+                # The bench runs every variant and the fp32 path at the batch of 24.
+                ("gdn_bf16", "serving bench", "B/4"), ("gdn_bf16", "serving bench", "B/8"),
+                ("igdn_bf16", "serving bench", "B/8"), ("igdn_f32", "serving bench", "B/4")]
     on_path += [(name, "training, fixed bin widths", shape)
                 for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
     on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]

@@ -1,4 +1,4 @@
-"""PyTorch port: no port module and not chip_smoke.py imports JAX, optax
+"""PyTorch port: no port module, nor chip_smoke.py or bench_torch.py, imports JAX, optax
 or the JAX package (an AST walk: a text search would be fooled by the
 port's own package name, which extends the JAX package's)."""
 
@@ -13,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "autoencoder_based_image_compression_tpu"
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     for (root, _, names) in os.walk(os.path.join(REPO, PORT)):
         files.extend(os.path.join(root, n) for n in names if n.endswith(".py"))
     return sorted(files)
@@ -55,6 +55,12 @@ def test_walk_sees_the_whole_port():
                  "data/kodak.py", "data/bsds.py", "data/imagenet.py", "data/download.py",
                  "ops/metrics.py", "utils/image.py", "coding/native.py",
                  "coding/compression.py"):
+        assert f"{PORT}/{name}" in rel
+    # The rest of serving and the port's bench, throughput and roofline tools.
+    assert "bench_torch.py" in rel
+    for name in ("engine/quantized.py", "parallel/continuous_batching.py",
+                 "eval/throughput.py", "eval/roofline.py", "eval/gate_probe.py",
+                 "eval/serving_bench.py", "eval/workload.py", "cli/benchmark.py"):
         assert f"{PORT}/{name}" in rel
     assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.

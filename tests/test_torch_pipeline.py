@@ -112,7 +112,7 @@ def test_pipelined_compressor_overflow_guard_raises():
 
 def test_pipelined_compressor_rejects_bad_arguments():
     (_, params, bw, mean, probs, _) = _experiment(LEARNED)
-    for kwargs in (dict(fast_path="bf16w"), dict(fast_path="int8"),
+    for kwargs in (dict(fast_path="bf16"), dict(fast_path="fp8"),
                    dict(max_in_flight=0)):
         with pytest.raises(ValueError):
             PipelinedCompressor(params, bw, True, probs, mean, device="cpu", **kwargs)
