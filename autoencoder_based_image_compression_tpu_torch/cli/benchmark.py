@@ -6,8 +6,9 @@ Counterpart of the reference's ``cli/benchmark.py``:
   each and the PSNR between their reconstructions), one JSON line;
 - ``profile``: writes a ``torch.profiler`` Chrome trace of one round
   trip for per-kernel inspection;
-- ``scaling``: throughput over 1..N devices; it needs the distributed
-  layer, which this package does not have yet, and raises.
+- ``scaling``: the round trip's Mpix/s over data-parallel meshes of
+  1, 2, 4 ... cards, one JSON line with the card's name and power limit
+  (on one card, the one-device row alone: not a scaling figure).
 
 Runs on ``--device cuda`` (default; fails without a card) or ``cpu``.
 """
@@ -19,9 +20,11 @@ import os
 import numpy
 import torch
 
+from autoencoder_based_image_compression_tpu_torch.eval.serving_bench import device_line
 from autoencoder_based_image_compression_tpu_torch.eval.throughput import (
     parity_and_throughput,
     profile_roundtrip,
+    scaling_report,
 )
 from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
@@ -45,10 +48,6 @@ def main(args=None):
                         help="'cuda' (default; fails without a card) or 'cpu'")
     args = parser.parse_args(args)
 
-    if args.command == "scaling":
-        raise NotImplementedError(
-            "`scaling` needs the distributed layer (throughput over 1..N devices), which "
-            "this package does not have yet.")
     device = resolve_device(args.device)
     if args.checkpoint:
         from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
@@ -72,6 +71,11 @@ def main(args=None):
 
     if args.command == "parity":
         print(json.dumps(parity_and_throughput(params, images, bin_widths, device=device)))
+    elif args.command == "scaling":
+        report = scaling_report(params, bin_widths, (args.height, args.width),
+                                args.per_device_batch, args.model_parallelism, device=device)
+        report["device"] = device_line(device)
+        print(json.dumps(report))
     else:
         trace = profile_roundtrip(params, images[:4], bin_widths, args.trace_dir,
                                   device=device)

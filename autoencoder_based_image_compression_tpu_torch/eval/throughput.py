@@ -1,9 +1,11 @@
-"""Throughput and fast-path-parity measurements on one device.
+"""Throughput, fast-path parity and scaling measurements.
 
-Counterpart of the reference's ``eval/throughput.py`` without its mesh
-(``scaling_report`` needs the distributed layer): encode + decode Mpix/s
-of the fp32 parity path and of a serving variant, the PSNR between
-their reconstructions, and a ``torch.profiler`` trace of one round trip.
+Counterpart of the reference's ``eval/throughput.py``: encode + decode
+Mpix/s of the fp32 parity path and of a serving variant, the PSNR
+between their reconstructions, a ``torch.profiler`` trace of one round
+trip, and ``scaling_report``, the round trip's Mpix/s over data-parallel
+meshes of 1, 2, 4 ... devices (``parallel.mesh``). On a machine with one
+card that is the one-device row alone: no scaling figure.
 
 PyTorch returns before the device has finished, so every timed region
 ends in a barrier (``torch.cuda.synchronize`` on the card); the checksum
@@ -103,6 +105,50 @@ def parity_and_throughput(params, images_uint8, bin_widths, repeats=5, nb_in_fli
         "mpix_per_s_fast": nb_pixels / seconds_fast / 1e6,
         "psnr_fast_vs_parity_db": psnr_between,
         "weight_mode": weight_mode,
+    }
+
+
+def scaling_report(params, bin_widths, image_shape, per_device_batch, model_parallelism=1,
+                   repeats=3, devices=None, device="cuda"):
+    """Times the sharded round trip on meshes of 1, 2, 4 ... devices.
+
+    ``devices`` lists the devices to scale over (default: every visible
+    card for ``device="cuda"``, the one CPU for ``"cpu"``); a mesh of
+    ``n`` takes the first ``n``, with ``model_parallelism`` of them a
+    model group, and runs a batch of ``per_device_batch`` images a data
+    shard. Returns ``{"mpix_per_s": {n: ...}, "efficiency": {n: ...}}``,
+    efficiency being Mpix/s over ``n`` times the one-device figure (None
+    without a one-device row, as when ``model_parallelism > 1``). With
+    one card the report has one row, efficiency 1.0: not a scaling
+    figure.
+    """
+    from autoencoder_based_image_compression_tpu_torch.parallel.inference import (
+        make_codec_fns,
+    )
+    from autoencoder_based_image_compression_tpu_torch.parallel.mesh import make_mesh
+
+    if devices is None:
+        device = resolve_device(device)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+    results = {}
+    n = model_parallelism  # the smallest mesh holds one model group
+    while n <= len(devices):
+        mesh = make_mesh(model_parallelism, devices=devices[:n])
+        (encode_fn, decode_fn, put) = make_codec_fns(True, mesh)
+        shape = (per_device_batch * (n // model_parallelism),) + tuple(image_shape) + (1,)
+        batch = put(numpy.zeros(shape, numpy.float32))
+
+        def roundtrip(params, batch, bin_widths):
+            return decode_fn(params, encode_fn(params, batch), bin_widths).local_sum()
+
+        seconds = time_with_checksum(roundtrip, params, batch, bin_widths, repeats=repeats)
+        results[n] = shape[0] * shape[1] * shape[2] / seconds / 1e6
+        n *= 2
+    base = results.get(1)
+    return {
+        "mpix_per_s": results,
+        "efficiency": {n: (v / (n * base)) if base else None for (n, v) in results.items()},
     }
 
 

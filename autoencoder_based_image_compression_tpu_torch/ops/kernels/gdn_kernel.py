@@ -21,9 +21,12 @@ the fused quantiser with an operand that requires grad. No call returns
 a detached result quietly.
 
 ``LAUNCHES`` counts the forward kernel launches per variant, so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels; ``LAUNCH_ROWS`` counts
+them per variant and row count, so that it can check the kernels at the
+row counts its path gave them.
 """
 
+import collections
 import ctypes
 import os
 import shutil
@@ -58,6 +61,7 @@ H100_SMS = 132
 
 LAUNCHES = {"gdn_f32": 0, "igdn_f32": 0, "gdn_bf16": 0, "igdn_bf16": 0,
             "gdn_quantize_f32": 0, "igdn_quantize_f32": 0}
+LAUNCH_ROWS = collections.Counter()  # (variant, rows) -> launches
 _lib = None
 _sm_counts = {}
 
@@ -65,6 +69,12 @@ _sm_counts = {}
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_ROWS.clear()
+
+
+def _count(variant, rows):
+    LAUNCHES[variant] += 1
+    LAUNCH_ROWS[(variant, rows)] += 1
 
 
 def _nvcc():
@@ -211,7 +221,7 @@ def _gdn_2d_forward(x, gamma, beta, inverse):
         variant = "bf16"
         status = lib.aeic_gdn_bf16(*args, stream)
     _raise_on_status(lib, status, "gdn_2d")
-    LAUNCHES[("igdn_" if inverse else "gdn_") + variant] += 1
+    _count(("igdn_" if inverse else "gdn_") + variant, x.shape[0])
     return out
 
 
@@ -304,7 +314,7 @@ def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
         tile_rows(x.shape[0], _sm_count(x.device)),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_status(lib, status, "gdn_quantize_2d")
-    LAUNCHES["igdn_quantize_f32" if inverse else "gdn_quantize_f32"] += 1
+    _count("igdn_quantize_f32" if inverse else "gdn_quantize_f32", x.shape[0])
     return out
 
 

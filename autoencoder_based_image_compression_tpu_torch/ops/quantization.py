@@ -1,7 +1,8 @@
 """Uniform scalar quantisation and the output casts.
 
 Counterparts of the reference's ``tools/tools.py:883-929``
-(``quantize_per_map``), ``:61-93`` (``cast_bt601``), ``:95-155``
+(``quantize_per_map``), ``:61-93`` (``cast_bt601``; ``cast_uint8`` is its
+RGB-range sibling), ``:95-155``
 (``cast_float_to_int16``) and ``tfutils/tfutils.py:8-43`` (``add_noise``).
 ``torch.round`` rounds half to even, like ``jnp.round`` and
 ``numpy.round``.
@@ -45,6 +46,15 @@ def cast_bt601(array_float):
     if isinstance(array_float, numpy.ndarray):
         return numpy.round(array_float.clip(16.0, 235.0)).astype(numpy.uint8)
     return torch.round(array_float.clamp(16.0, 235.0)).to(torch.uint8)
+
+
+def cast_uint8(array_float):
+    """Clips to [0, 255], rounds (half to even) and casts to uint8 (the
+    RGB pixel range). Accepts a numpy array or a tensor and returns the
+    same kind."""
+    if isinstance(array_float, numpy.ndarray):
+        return numpy.round(array_float.clip(0.0, 255.0)).astype(numpy.uint8)
+    return torch.round(array_float.clamp(0.0, 255.0)).to(torch.uint8)
 
 
 def cast_float_to_int16(array_float):

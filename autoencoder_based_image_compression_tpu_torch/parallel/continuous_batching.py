@@ -1,7 +1,7 @@
-"""Continuous batching of images through the codec, on one device.
+"""Continuous batching of images through the codec.
 
-Counterpart of the reference's ``parallel/continuous_batching.py``
-without its mesh: images arrive as a stream; the batcher packs them into
+Counterpart of the reference's ``parallel/continuous_batching.py``:
+images arrive as a stream; the batcher packs them into
 batches of one fixed size, pads the last partial batch, keeps several
 batches in flight and hands each finished image to a completion
 callback, under which the caller typically runs the host arithmetic
@@ -144,20 +144,25 @@ class ContinuousBatcher:
 
 
 def stream_roundtrip(params, bin_widths, images_uint8, batch_size, learn_bin_widths=True,
-                     max_in_flight=2, device="cuda"):
+                     mesh=None, max_in_flight=2, device="cuda"):
     """Streams a uint8 stack through encode + quantise + decode (the
-    fp32 transforms of ``make_codec_fns``) on one device.
+    fp32 transforms of ``make_codec_fns``), on ``device`` or over
+    ``mesh`` (each batch split over its ``data`` axis, the batch's
+    reconstructions gathered whole before they are fetched).
 
     ``params`` is the dict of ``train.checkpoint.params_from_jax``.
     Returns the float32 reconstructions in submission order.
     """
+    if mesh is not None:
+        device = mesh.device_of("data", mesh.local_indices("data")[0])
     device = resolve_device(device)
-    (encode_fn, decode_fn, put) = make_codec_fns(learn_bin_widths, device)
+    (encode_fn, decode_fn, put) = make_codec_fns(learn_bin_widths, mesh, device=device)
     params = {name: value.to(device) for (name, value) in params.items()}
     bw = torch.tensor(numpy.asarray(bin_widths, numpy.float32)).to(device)
 
     def batch_fn(batch):
-        return decode_fn(params, encode_fn(params, put(batch)), bw)
+        out = decode_fn(params, encode_fn(params, put(batch)), bw)
+        return out if mesh is None else out.gather(device)
 
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
     batcher = ContinuousBatcher(batch_fn, batch_size, max_in_flight, stream=stream)

@@ -1,13 +1,19 @@
-"""Batched and pipelined inference on one device.
+"""Batched and pipelined inference, on one device or over a mesh.
 
-Counterpart of the reference's ``parallel/inference.py`` without its
-mesh: :func:`make_codec_fns` (encode and quantise + decode as two
-device functions), :func:`roundtrip_batched` (encode + quantise +
-decode, batch by batch) and :class:`PipelinedCompressor` (device
-transforms overlapped with the host C++ arithmetic coder, over the fp32
-transforms or one of the serving variants "bf16w+", "bf16w" and "int8";
-on an H100 only "bf16w+" holds the 0.05 dB gate against the fp32 path).
-All run on ``cuda`` unless the caller passes ``device="cpu"``.
+Counterpart of the reference's ``parallel/inference.py``:
+:func:`make_codec_fns` (encode and quantise + decode as two device
+functions), :func:`roundtrip_batched` (encode + quantise + decode, batch
+by batch) and :class:`PipelinedCompressor` (device transforms overlapped
+with the host C++ arithmetic coder, over the fp32 transforms or one of
+the serving variants "bf16w+", "bf16w" and "int8"; on an H100 only
+"bf16w+" holds the 0.05 dB gate against the fp32 path).
+
+With a ``mesh`` (``parallel.mesh``) each batch is split over its
+``data`` axis, and each process runs its own blocks; with
+``spatial=True`` each image's height is also cut into bands over the
+``model`` axis, whose halos ``parallel.spatial`` exchanges. Every
+process gets the whole result back, in image order. Without a mesh all
+run on ``device``: ``cuda`` unless the caller passes ``"cpu"``.
 """
 
 import collections
@@ -28,6 +34,11 @@ from autoencoder_based_image_compression_tpu_torch.ops.quantization import (
     cast_bt601,
     quantize_per_map,
 )
+from autoencoder_based_image_compression_tpu_torch.parallel import spatial as bands_mod
+from autoencoder_based_image_compression_tpu_torch.parallel.sharding import (
+    gather_pieces,
+    split_batch,
+)
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 
 
@@ -41,59 +52,138 @@ def _as_f32(array, device):
     return torch.tensor(numpy.asarray(array, numpy.float32), device=device)
 
 
-def make_codec_fns(learn_bin_widths, device="cuda"):
+class _Placed:
+    """Replicated operands (a parameter dict, a tensor) on each device
+    that asks, copied once a device and a value."""
+
+    def __init__(self):
+        self._copies = {}
+
+    def __call__(self, value, device):
+        key = (id(value), device)
+        if key not in self._copies:
+            placed = (_to_device(value, device) if isinstance(value, dict)
+                      else torch.as_tensor(numpy.asarray(value, numpy.float32)
+                                           if not torch.is_tensor(value) else value).to(device))
+            self._copies[key] = (value, placed)  # holds `value`, so its id stays its own
+        return self._copies[key][1]
+
+
+def _quantize(params, images_f32, bin_widths, learn_bin_widths):
+    """Encode + quantise (uncentred) on one device. In the fixed-bin-width
+    variant GDN_3 and the quantiser are one fused kernel launch."""
+    if learn_bin_widths:
+        return quantize_per_map(conv_eae.encode(params, images_f32, True), bin_widths)
+    return gdn_quantize_nhwc(conv_eae.analysis(params, images_f32), params["gamma_3"],
+                             params["beta_3"], bin_widths)
+
+
+def make_codec_fns(learn_bin_widths, mesh=None, spatial=False, device="cuda"):
     """The fp32 codec as two device functions and an upload.
 
     Returns ``(encode_fn, decode_fn, device_put_batch)``:
     ``encode_fn(params, images_f32) -> latents``,
     ``decode_fn(params, latents, bin_widths) -> reconstruction`` with the
-    quantiser inside it, and ``device_put_batch(batch)``, which puts a
-    numpy array or a tensor on ``device``. ``params`` and ``bin_widths``
-    are tensors on ``device``. One device; sharding over several is not
-    part of this signature.
+    quantiser inside it, and ``device_put_batch(batch)``.
+
+    Without a mesh, ``device_put_batch`` puts a numpy array or a tensor
+    on ``device``, and ``params`` and ``bin_widths`` are tensors there.
+    With a mesh, it returns this process's
+    :class:`parallel.sharding.ShardedBatch` (split over ``data``, and
+    over ``model`` by height when ``spatial``); the two functions take
+    and return such batches (``.gather()`` assembles one whole) and
+    place ``params`` and ``bin_widths`` on each shard's device, once.
     """
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
+
+        def device_put_batch(batch):
+            return torch.as_tensor(batch).to(device)
+
+        def encode_fn(params, images_f32):
+            return conv_eae.encode(params, images_f32, learn_bin_widths)
+
+        def decode_fn(params, latents, bin_widths):
+            return conv_eae.decode(params, quantize_per_map(latents, bin_widths),
+                                   learn_bin_widths)
+
+        return (encode_fn, decode_fn, device_put_batch)
+
+    placed = _Placed()
 
     def device_put_batch(batch):
-        return torch.as_tensor(batch).to(device)
+        return split_batch(batch, mesh, spatial)
 
-    def encode_fn(params, images_f32):
-        return conv_eae.encode(params, images_f32, learn_bin_widths)
+    def encode_fn(params, batch):
+        return batch.map_blocks(
+            lambda x: conv_eae.encode(placed(params, x.device), x, learn_bin_widths),
+            lambda bands, d: bands_mod.encode_bands(
+                placed(params, next(iter(bands.values())).device), bands, learn_bin_widths,
+                bands_mod.HaloExchange(mesh, d)))
 
     def decode_fn(params, latents, bin_widths):
-        return conv_eae.decode(params, quantize_per_map(latents, bin_widths),
-                               learn_bin_widths)
+        def whole(y):
+            return conv_eae.decode(placed(params, y.device), quantize_per_map(
+                y, placed(bin_widths, y.device)), learn_bin_widths)
+
+        def bands(latent_bands, d):
+            device = next(iter(latent_bands.values())).device
+            quantized = {m: quantize_per_map(y, placed(bin_widths, device))
+                         for (m, y) in latent_bands.items()}
+            return bands_mod.decode_bands(placed(params, device), quantized,
+                                          learn_bin_widths, bands_mod.HaloExchange(mesh, d))
+
+        return latents.map_blocks(whole, bands)
 
     return (encode_fn, decode_fn, device_put_batch)
 
 
 def roundtrip_batched(params, images_uint8, bin_widths, learn_bin_widths,
-                      batch_size, device="cuda"):
+                      batch_size, mesh=None, spatial=False, device="cuda"):
     """Encode + quantise + decode a uint8 ``(N, H, W, 1)`` image stack.
 
     ``params`` is the dict of ``train.checkpoint.params_from_jax``.
     Batches are queued on the device back to back and fetched at the
     end. In the fixed-bin-width variant, GDN_3 and the quantiser after
     it are one launch of the fused GDN+quantise kernel (uncentred,
-    ``bw * round(gdn(x) / bw)``). Returns float32 reconstructions (the
-    caller applies ``cast_bt601``).
+    ``bw * round(gdn(x) / bw)``), one a shard over a mesh. With a
+    ``mesh``, each batch splits over its ``data`` axis (and, when
+    ``spatial``, each image's height over ``model``; see
+    :func:`make_codec_fns`), and every process returns the whole stack.
+    Returns float32 reconstructions (the caller applies ``cast_bt601``).
     """
-    device = resolve_device(device)
-    params = _to_device(params, device)
-    bin_widths = _as_f32(bin_widths, device)
+    if mesh is None:
+        device = resolve_device(device)
+        params = _to_device(params, device)
+        bin_widths = _as_f32(bin_widths, device)
+    placed = _Placed()
     outputs = []
     for start in range(0, images_uint8.shape[0], batch_size):
-        batch = torch.from_numpy(
-            numpy.ascontiguousarray(images_uint8[start:start + batch_size])
-        ).to(device).to(torch.float32)
-        if learn_bin_widths:
-            quantized = quantize_per_map(conv_eae.encode(params, batch, True),
-                                         bin_widths)
-        else:
-            quantized = gdn_quantize_nhwc(conv_eae.analysis(params, batch),
-                                          params["gamma_3"], params["beta_3"],
-                                          bin_widths)
-        outputs.append(conv_eae.decode(params, quantized, learn_bin_widths))
+        batch = images_uint8[start:start + batch_size]
+        if mesh is None:
+            images = torch.from_numpy(numpy.ascontiguousarray(batch)).to(device).to(
+                torch.float32)
+            quantized = _quantize(params, images, bin_widths, learn_bin_widths)
+            outputs.append(conv_eae.decode(params, quantized, learn_bin_widths))
+            continue
+
+        def whole(x):
+            (p, bw) = (placed(params, x.device), placed(bin_widths, x.device))
+            return conv_eae.decode(p, _quantize(p, x.to(torch.float32), bw, learn_bin_widths),
+                                   learn_bin_widths)
+
+        def bands(image_bands, d):
+            device = next(iter(image_bands.values())).device
+            (p, bw) = (placed(params, device), placed(bin_widths, device))
+            exchange = bands_mod.HaloExchange(mesh, d)
+            quantized = bands_mod.quantize_bands(
+                p, {m: x.to(torch.float32) for (m, x) in image_bands.items()}, bw,
+                learn_bin_widths, exchange)
+            return bands_mod.decode_bands(p, quantized, learn_bin_widths, exchange)
+
+        outputs.append(split_batch(batch, mesh, spatial).map_blocks(whole, bands))
+    if mesh is not None:
+        outputs = [out.gather() for out in outputs]
     return numpy.concatenate([out.cpu().numpy() for out in outputs], axis=0)
 
 
@@ -127,11 +217,14 @@ class PipelinedCompressor:
 
     Drives the full true-rate pipeline over an image stack: the device
     runs up to ``max_in_flight`` batches ahead while the C++ coder
-    thread pool compresses the symbols of the oldest one.
+    thread pool compresses the symbols of the oldest one. Over a mesh,
+    each batch splits over its ``data`` axis: each process encodes,
+    codes and decodes its own blocks, each on its shard's device, and
+    the bit counts and reconstructions are gathered in image order.
     """
 
     def __init__(self, params, bin_widths, learn_bin_widths, binary_probabilities,
-                 map_mean, idx_map_exception=-1, batch_size=4, fast_path=None,
+                 map_mean, idx_map_exception=-1, mesh=None, batch_size=4, fast_path=None,
                  reconstruct=True, verify=True, max_in_flight=4, device="cuda"):
         """``params`` is the dict of ``train.checkpoint.params_from_jax``.
 
@@ -151,7 +244,13 @@ class PipelinedCompressor:
         ``verify=True`` round-trips and asserts every coded map;
         ``verify=False`` encodes only (same bit counts).
         ``max_in_flight`` bounds the dispatched-but-uncoded batches.
+        ``mesh`` (``parallel.mesh``): data-parallel over its ``data``
+        axis; every batch must split evenly over it, and ``device`` is
+        then the mesh's.
         """
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device_of("data", mesh.local_indices("data")[0])
         self.device = resolve_device(device)
         self._fp32_tail = 0
         self._fp32_head = False
@@ -182,6 +281,7 @@ class PipelinedCompressor:
         self.params = _to_device(params, self.device)
         self.bin_widths = _as_f32(bin_widths, self.device)
         self.map_mean = _as_f32(map_mean, self.device)
+        self._placed = _Placed()
         self.learn_bin_widths = learn_bin_widths
         self.binary_probabilities = (
             numpy.load(binary_probabilities)
@@ -206,34 +306,60 @@ class PipelinedCompressor:
         magnitude check on ``max_abs`` says it is exact.
         """
         batch = batch_uint8.to(torch.float32)
+        (params, bin_widths, map_mean) = self._operands(batch.device)
         if self.fast_path is not None:
-            y = engine.fast_encode(self.params, batch, learn_bin_widths=True,
+            y = engine.fast_encode(params, batch, learn_bin_widths=True,
                                    fp32_enc_tail=self._fp32_enc_tail)
         else:
-            y = conv_eae.encode(self.params, batch, self.learn_bin_widths)
-        sym = torch.round((y - self.map_mean) / self.bin_widths)
+            y = conv_eae.encode(params, batch, self.learn_bin_widths)
+        sym = torch.round((y - map_mean) / bin_widths)
         sym16 = sym.clamp(-32768.0, 32767.0).to(torch.int16)
         sym8 = sym.clamp(-128.0, 127.0).to(torch.int8)
         return (sym16, sym8, sym.abs().amax())
 
     def decode_symbols(self, symbols16):
         """int16 symbols -> BT.601 uint8 reconstructions, on the device."""
-        quantized = symbols16.to(torch.float32) * self.bin_widths + self.map_mean
+        (params, bin_widths, map_mean) = self._operands(symbols16.device)
+        quantized = symbols16.to(torch.float32) * bin_widths + map_mean
         if self.fast_path is not None:
-            reconstruction = engine.fast_decode(self.params, quantized,
+            reconstruction = engine.fast_decode(params, quantized,
                                                 fp32_tail=self._fp32_tail,
                                                 fp32_head=self._fp32_head,
                                                 exact_latents=self._exact_latents)
         else:
-            reconstruction = conv_eae.decode(self.params, quantized,
-                                             self.learn_bin_widths)
+            reconstruction = conv_eae.decode(params, quantized, self.learn_bin_widths)
         return cast_bt601(reconstruction)
 
-    def _dispatch(self, images_uint8, start):
-        """Queues one batch's encode, the narrow symbol fetch, and the
+    def _operands(self, device):
+        """``(params, bin_widths, map_mean)`` on ``device``."""
+        if device == self.device:
+            return (self.params, self.bin_widths, self.map_mean)
+        return tuple(self._placed(value, device)
+                     for value in (self.params, self.bin_widths, self.map_mean))
+
+    def _units(self, nb):
+        """``(first, stop, device)`` of the blocks this process runs:
+        each batch whole, or over a mesh its data blocks held here."""
+        if self.mesh is None:
+            return [(start, min(start + self.batch_size, nb), self.device)
+                    for start in range(0, nb, self.batch_size)]
+        n_data = self.mesh.size("data")
+        units = []
+        for start in range(0, nb, self.batch_size):
+            size = min(self.batch_size, nb - start)
+            if size % n_data:
+                raise ValueError(f"a batch of {size} images does not split evenly over the "
+                                 f"{n_data} data shards of the mesh.")
+            per = size // n_data
+            units += [(start + d * per, start + (d + 1) * per, self.mesh.device_of("data", d))
+                      for d in self.mesh.local_indices("data")]
+        return units
+
+    def _dispatch(self, images_uint8, unit):
+        """Queues one block's encode, the narrow symbol fetch, and the
         optional decode with its fetch."""
-        batch = torch.from_numpy(numpy.ascontiguousarray(
-            images_uint8[start:start + self.batch_size])).to(self.device)
+        (start, stop, device) = unit
+        batch = torch.from_numpy(numpy.ascontiguousarray(images_uint8[start:stop])).to(device)
         (symbols16, symbols8, max_abs) = self.encode_symbols(batch)
         symbols_fetch = Fetch(symbols8, max_abs)
         reconstruction_fetch = None
@@ -249,8 +375,7 @@ class PipelinedCompressor:
         batch's max magnitude fits, else as int16; a magnitude above the
         int16 range (or NaN) raises before anything is coded.
         """
-        nb = images_uint8.shape[0]
-        starts = list(range(0, nb, self.batch_size))
+        units = self._units(images_uint8.shape[0])
         bits_per_start = {}
         recs_per_start = {}
         inflight = collections.deque()
@@ -258,10 +383,10 @@ class PipelinedCompressor:
         timing = {"wall": 0.0, "coder": 0.0, "fetch_wait": 0.0}
         t_call = time.perf_counter()
         next_idx = 0
-        while next_idx < len(starts) or inflight:
-            while (next_idx < len(starts)
+        while next_idx < len(units) or inflight:
+            while (next_idx < len(units)
                    and len(inflight) < self.max_in_flight):
-                inflight.append(self._dispatch(images_uint8, starts[next_idx]))
+                inflight.append(self._dispatch(images_uint8, units[next_idx]))
                 next_idx += 1
                 self.peak_in_flight = max(self.peak_in_flight, len(inflight))
             (start, symbols16, symbols_fetch, reconstruction_fetch) = (
@@ -286,11 +411,16 @@ class PipelinedCompressor:
             if reconstruction_fetch is not None:
                 t0 = time.perf_counter()
                 (recs_per_start[start],) = reconstruction_fetch.wait()
+                recs_per_start[start] = recs_per_start[start].numpy()
                 timing["fetch_wait"] += time.perf_counter() - t0
+        if self.mesh is not None:
+            bits_per_start = gather_pieces(bits_per_start, self.mesh)
+            recs_per_start = gather_pieces(recs_per_start, self.mesh)
         timing["wall"] = time.perf_counter() - t_call
         self.last_timing = timing
+        starts = sorted(bits_per_start)
         bits = numpy.concatenate([bits_per_start[s] for s in starts])
         if not self.reconstruct:
             return (None, bits)
-        recs = numpy.concatenate([recs_per_start[s].numpy() for s in starts], axis=0)
+        recs = numpy.concatenate([recs_per_start[s] for s in starts], axis=0)
         return (recs, bits)

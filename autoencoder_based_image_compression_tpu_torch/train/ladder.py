@@ -27,6 +27,12 @@ The ladder family is the fixed-bin-width architecture
 :class:`TrainState`, so checkpoints, statistics collection and the RD
 evaluation consume ladder-trained models unchanged.
 
+``shard_ladder_state`` spreads the models over a mesh axis: each shard
+holds a contiguous run of models and its ladder step is the same loop
+over its own models only, with no communication (the models are
+independent). ``parallel.distributed.fetch_replicated`` stacks the
+ladder again.
+
 **Noise.** Where the reference takes a random key, these functions take
 ``noise``: a ``torch.Generator`` on the state's device (drawn from per
 model, in model order, density phase first), or the noise itself, one
@@ -34,10 +40,13 @@ entry per model: a tensor for ``training_fct`` and ``evaluation``, a
 pair ``(noise_fct, noise_eae)`` for ``train_step``.
 """
 
+from typing import Dict, NamedTuple
+
 import torch
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.train.state import (
+    TrainState,
     init_train_state,
     map_state,
 )
@@ -84,6 +93,65 @@ def init_ladder_state(generator, gammas, bin_width_init=1.0,
         for _ in gammas])
 
 
+class LadderShards(NamedTuple):
+    """A ladder spread over a mesh axis (:func:`shard_ladder_state`).
+
+    ``blocks[i]`` is the stacked state of models ``[i * per_shard, (i + 1)
+    * per_shard)`` on the device of this process's entry at index ``i``
+    of ``axis``; only this process's indices are here.
+    """
+
+    mesh: object
+    axis: str
+    nb_models: int
+    blocks: Dict[int, TrainState]
+
+    @property
+    def per_shard(self):
+        return self.nb_models // self.mesh.size(self.axis)
+
+    def map_blocks(self, fn):
+        """The ladder whose every block ``i`` is ``fn(i, block)``."""
+        return self._replace(blocks={i: fn(i, block) for (i, block) in self.blocks.items()})
+
+    def fetch(self):
+        """The whole stacked ladder on the host (CPU tensors), every
+        process's blocks included."""
+        from autoencoder_based_image_compression_tpu_torch.parallel.distributed import (
+            all_gather_objects,
+        )
+
+        local = {i: map_state(lambda leaf: leaf.detach().cpu(), block)
+                 for (i, block) in self.blocks.items()}
+        merged = {}
+        for other in all_gather_objects(local, self.mesh):
+            merged.update(other)
+        return map_state(lambda *leaves: torch.cat(leaves, dim=0),
+                         *[merged[i] for i in range(self.mesh.size(self.axis))])
+
+
+def shard_ladder_state(ladder_states, mesh, axis="data"):
+    """Spreads the ladder (leading) axis of every leaf over a mesh axis.
+
+    Model parallelism over the gammas: each shard trains its own
+    contiguous run of models with no communication, so the study scales
+    with the shards. The number of models must divide the axis size
+    (pad the gamma list otherwise). The step functions of
+    :func:`make_ladder_step_fns` take the result as they take a stacked
+    state, and return it so.
+    """
+    nb_models = int(ladder_states.step.shape[0])
+    size = mesh.size(axis)
+    if nb_models % size:
+        raise ValueError(f"{nb_models} ladder models do not divide over the {size} shards "
+                         f"of the {axis!r} axis (pad the gamma list).")
+    per = nb_models // size
+    blocks = {i: map_state(lambda leaf, i=i: leaf[i * per:(i + 1) * per].to(
+        mesh.device_of(axis, i)).clone(), ladder_states)
+        for i in mesh.local_indices(axis)}
+    return LadderShards(mesh, axis, nb_models, blocks)
+
+
 def _per_model(noise, nb_models):
     """``noise`` as one entry per model."""
     if isinstance(noise, torch.Generator):
@@ -100,16 +168,32 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     Returns ``{"training_fct", "train_step", "train_epoch"}``, the
     ladder counterparts of :func:`train.step.make_step_fns`'s entries
     (fixed-bin-width architecture). Each takes and returns the stacked
-    state.
+    state, or the :class:`LadderShards` of :func:`shard_ladder_state`
+    (each block runs the loop over its own models).
     """
     singles = [make_step_fns(gamma, False, ppi=ppi, max_itvs=max_itvs) for gamma in gammas]
 
     def over_models(name):
-        def fn(states, batch, noise):
+        def loop(models, states, batch, noises):
             return ladder_stack_states([
                 fns[name](state, batch, noise_k)
-                for (fns, state, noise_k) in zip(singles, _unstack(states),
-                                                 _per_model(noise, len(singles)))])
+                for (fns, state, noise_k) in zip(models, _unstack(states), noises)])
+
+        def fn(states, batch, noise):
+            noises = _per_model(noise, len(singles))
+            if not isinstance(states, LadderShards):
+                return loop(singles, states, batch, noises)
+            per = states.per_shard
+
+            def block_step(i, block):
+                device = block.step.device
+                block_noises = [n if isinstance(n, torch.Generator) else (
+                    tuple(t.to(device) for t in n) if isinstance(n, (tuple, list))
+                    else n.to(device)) for n in noises[i * per:(i + 1) * per]]
+                return loop(singles[i * per:(i + 1) * per], block, batch.to(device),
+                            block_noises)
+
+            return states.map_blocks(block_step)
         return fn
 
     training_fct = over_models("training_fct")

@@ -70,8 +70,28 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    mix is inside 0.05 dB at multipliers 1, 4 and 10); the serving bench
    in-process with 3 repeats, its JSON on a line of its own; the roofline
    report for "bf16w+" and fp32 against measured matmul ceilings;
+7c. the gate on two more image sets (``synthetic_kodak`` seeds 15 and 16)
+   through the scan path and the pipeline: fails unless both serving
+   "bf16w+" mixes hold -0.05 dB on every image at multipliers 1, 4 and 10;
+9. the distributed layer (run before phase 8, which reports its kernels):
+   (a) a world of one over NCCL: ``initialize``, ``make_global_mesh(1)``,
+   ``global_state`` and 6 sharded ``train_step``s of both architectures at
+   batch 10 of 256 x 256 from the trained weights, each held against the
+   unsharded step from the same state with the same noise (the gradients
+   within 1e-5 of each tensor's largest entry, the density table within
+   2.6e-6, the bin widths within 1.1e-6, weights as the ladder's check),
+   with ms per sharded and per unsharded step; (b) the height-sharded
+   round trip of 4 images of 512 x 768 on a two-shard one-process mesh of
+   the card, both trained architectures, against the unsharded one
+   (largest gap under 5e-2 of a pixel level, quantised symbols equal);
+   (c) ``PipelinedCompressor`` (fp32 and "bf16w+") and ``stream_roundtrip``
+   over a two-shard data mesh on the 24 images: bit counts equal to the
+   mesh-less path; (d) a ladder step of the seven models spread over a
+   seven-shard mesh against the unsharded ladder step; (e) ``cli/benchmark
+   scaling`` and ``dryrun_multichip(2)``. Then every kernel against its
+   plain version at each row count these paths launched it at;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
-9. the result line ``{"ok": true, "device": {...}}``, last.
+10. the result line ``{"ok": true, "device": {...}}``, last.
 
 Launch counts are set to 0 just before each path and read just after.
 A wrapper counts where Python calls it, so a CUDA graph counts at its
@@ -81,6 +101,7 @@ Any failure exits non-zero; so does a machine without a card. Imports
 nothing of JAX.
 """
 
+import collections
 import contextlib
 import hashlib
 import importlib.util
@@ -136,6 +157,9 @@ DEVICE = "cuda"
 (TRAIN_IMAGES, TRAIN_EPOCHS, EXTRA_IMAGES, SERVED_IMAGES) = (120, 3, 20, 4)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256,
+        # One of two shards of the serving batch: a height band or a data block.
+        "S/4": BATCH * HEIGHT * WIDTH // 32, "S/8": BATCH * HEIGHT * WIDTH // 128,
+        "S/16": BATCH * HEIGHT * WIDTH // 512,
         "B/4": BENCH_BATCH * HEIGHT * WIDTH // 16, "B/8": BENCH_BATCH * HEIGHT * WIDTH // 64,
         "B/16": BENCH_BATCH * HEIGHT * WIDTH // 256,
         "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
@@ -143,6 +167,11 @@ ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
 SERVE_SHAPES = ("H/4", "H/8", "H/16")
 BENCH_SHAPES = ("B/4", "B/8")
+SHARD_SHAPES = ("S/4", "S/8", "S/16")
+# The distributed layer: sharded steps held against unsharded ones, the
+# height-sharded round trip's gate, and the two image sets of the gate's
+# wider probe.
+(DIST_STEPS, SPATIAL_GAP, GATE_SEEDS) = (6, 5e-2, (15, 16))
 # The ladder: one epoch of 12 shared batches a part; the single-model
 # comparison runs 3 steps; the RD study's gates against the committed curves.
 (LADDER_IMAGES, LADDER_COMPARED_STEPS) = (120, 3)
@@ -165,12 +194,13 @@ TRAIN_SITES = {
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
     "gdn_f32": (torch.float32, False, False, (LEARNED, 1),
-                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES, 26),
+                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("S/4", "S/8"), 26),
     "igdn_f32": (torch.float32, True, False, (LEARNED, 6),
-                 SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",), 26),
+                 SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",) + SHARD_SHAPES, 26),
     "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8") + BENCH_SHAPES, 26),
-    "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6), ("H/4", "H/8") + BENCH_SHAPES, 26),
-    "gdn_quantize_f32": (torch.float32, False, True, (FIXED, 3), ("H/16",), 44),
+    "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6),
+                  ("H/4", "H/8") + BENCH_SHAPES + ("S/4",), 26),
+    "gdn_quantize_f32": (torch.float32, False, True, (FIXED, 3), ("H/16", "S/16"), 44),
 }
 
 
@@ -312,6 +342,8 @@ def phase_kernels():
             ragged["ragged H/16"] = ROWS["H/16"] + RAGGED_EXTRA
         if "B/4" in shapes:
             ragged["ragged B/4"] = ROWS["B/4"] + RAGGED_EXTRA
+        if "S/4" in shapes:
+            ragged["ragged S/4"] = ROWS["S/4"] + RAGGED_EXTRA
         for shape in tuple(ragged) + shapes:
             rows = ragged.get(shape) or ROWS[shape]
             (x, *params) = kernel_inputs(name, rows, seed)
@@ -689,7 +721,7 @@ def phase_serving_variants(kernel_results, pipeline_table, psnrs_fp32):
     # belongs to a thread, so the batcher is given the stream to queue on.
     stream = torch.cuda.Stream()
     seen = set()
-    (encode_fn, decode_fn, put) = make_codec_fns(True, DEVICE)
+    (encode_fn, decode_fn, put) = make_codec_fns(True, device=DEVICE)
 
     def batch_fn(batch):
         seen.add(torch.cuda.current_stream().cuda_stream)
@@ -1442,6 +1474,345 @@ def phase_rd_study():
     return {"rd study": launches}
 
 
+def phase_gate_sets():
+    """The serving "bf16w+" mixes on two more image sets, through the
+    scan path and through the pipeline: the worst image's delta against
+    the fp32 transforms at multipliers 1, 4 and 10, which must hold the
+    gate. The next scan mix, should the current one miss, is measured
+    beside it."""
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
+    from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
+    from autoencoder_based_image_compression_tpu_torch.eval import gate_probe
+
+    (params, bin_widths, map_mean, _, _) = load_model(LEARNED)
+    serving = {
+        "scan": gate_probe.mix_label("scan", "bf16", engine.BF16WPLUS_SCAN_MIX),
+        "pipeline": gate_probe.mix_label("pipeline", "bf16", dict(
+            fp32_enc_tail=engine.BF16WPLUS_ENC_TAIL, fp32_tail=engine.BF16WPLUS_DEC_TAIL,
+            fp32_head=engine.BF16WPLUS_DEC_HEAD,
+            exact_latents=engine.BF16WPLUS_DEC_EXACT_LATENTS))}
+    beside = {"scan": ("e: fp32 tconv_4, folded kernel left fp32",
+                       "f: fp32 head + fp32 IGDN_6"), "pipeline": ()}
+    missed = []
+    for seed in GATE_SEEDS:
+        images = synthetic_kodak(seed=seed)
+        for (through, label) in serving.items():
+            rows = tuple(dict.fromkeys((label,) + beside[through]))
+            mixes = {row: gate_probe.GATE_MIXES[through][row] for row in rows}
+            table = gate_probe.gate_table(params, bin_widths, map_mean, images, through=through,
+                                          batch_size=BATCH, device=DEVICE, mixes=mixes,
+                                          show=lambda line: None)
+            for row in rows:
+                print(f"  synthetic_kodak(seed={seed}), through the {through}, {row}: worst "
+                      "image " + "; ".join(f"x{m:g} {d:+.4f}" for (m, d) in table[row].items())
+                      + (" dB (serving mix)" if row == label else " dB"))
+            if not gate_probe.holds_gate(table[label]):
+                missed.append((seed, through, table[label]))
+    if missed:
+        raise AssertionError(f"a serving bf16w+ mix misses the {gate_probe.GATE_DB} dB gate: "
+                             f"{missed}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _trained_state(exp_dir, learn_bin_widths):
+    from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
+
+    (params, bin_widths, _, _, _) = load_model(exp_dir)
+    state = init_train_state(torch.Generator().manual_seed(0), 1.0, learn_bin_widths,
+                             device=DEVICE)
+    return state._replace(params={k: v.cuda() for (k, v) in params.items()},
+                          bin_widths=torch.from_numpy(bin_widths).cuda())
+
+
+def _state_gaps(got, expected):
+    """``(largest weight gap, weight entries outside rtol 1e-5 / atol
+    1e-6, entries, density table gap, bin-width gap)``."""
+    (worst, outside, entries) = (0.0, 0, 0)
+    for (name, value) in expected.params.items():
+        gap = (got.params[name] - value).abs()
+        worst = max(worst, float(gap.max()))
+        outside += int((gap > 1e-6 + 1e-5 * value.abs()).sum())
+        entries += gap.numel()
+    density = float((got.density.parameters - expected.density.parameters).abs().max())
+    bw = float((got.bin_widths - expected.bin_widths).abs().max())
+    return (worst, outside, entries, density, bw)
+
+
+def _hold_state(label, got, expected, steps=1):
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+
+    (worst, outside, entries, density, bw) = _state_gaps(got, expected)
+    bound = 2 * csts.LR_EAE * steps * (1 + 1e-4)
+    if int(got.density.nb_itvs_per_side.max()) != int(expected.density.nb_itvs_per_side.max()) \
+            or not torch.equal(got.step, expected.step):
+        raise AssertionError(f"{label}: another grid or step than the unsharded run")
+    # Adam's first update turns reduction-order noise on a near-zero
+    # gradient into a sign, and the card's density scatter-add sums in a
+    # varying order: a weight may move by two learning rates, in few entries.
+    if worst > bound or outside > 1e-4 * entries or density > 2.6e-6 or bw > 1.1e-6:
+        raise AssertionError(f"{label}: weights {worst} ({outside} of {entries} outside), "
+                             f"density table {density}, bin widths {bw}")
+    return (worst, outside, entries, density, bw)
+
+
+def phase_distributed(card):
+    """The distributed layer on the card; returns each path's launch
+    counts and the (variant, rows) counts its kernels were launched at."""
+    from autoencoder_based_image_compression_tpu_torch import dryrun
+    from autoencoder_based_image_compression_tpu_torch.cli import benchmark, train_ladder
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
+        synthetic_kodak,
+        synthetic_luminance_stack,
+    )
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.parallel import distributed
+    from autoencoder_based_image_compression_tpu_torch.parallel import spatial as bands_mod
+    from autoencoder_based_image_compression_tpu_torch.parallel.continuous_batching import (
+        stream_roundtrip,
+    )
+    from autoencoder_based_image_compression_tpu_torch.parallel.inference import (
+        PipelinedCompressor,
+        _quantize,
+        roundtrip_batched,
+    )
+    from autoencoder_based_image_compression_tpu_torch.parallel.mesh import make_mesh
+    from autoencoder_based_image_compression_tpu_torch.parallel.sharding import split_batch
+    from autoencoder_based_image_compression_tpu_torch.parallel.train_parallel import (
+        make_sharded_step_fns,
+    )
+    from autoencoder_based_image_compression_tpu_torch.train import ladder
+    from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns, rd_gradients
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+
+    paths = {}
+    rows_seen = collections.Counter()
+
+    def record(path):
+        paths[path] = {name: n for (name, n) in gk.LAUNCHES.items() if n}
+        rows_seen.update(gk.LAUNCH_ROWS)
+
+    # --- (a) a world of one over NCCL.
+    latent = (TRAIN_BATCH, TRAIN_CROP // 16, TRAIN_CROP // 16, csts.NB_MAPS_3)
+    crops = torch.from_numpy(synthetic_luminance_stack(
+        DIST_STEPS * TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, seed=30)).cuda()
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        if torch.distributed.get_backend() != backend:
+            raise AssertionError(f"backend {torch.distributed.get_backend()}, not {backend}")
+        mesh = distributed.make_global_mesh(1)
+        for (learn_bin_widths, exp_dir) in ((True, LEARNED), (False, FIXED)):
+            tag = "learned bin widths" if learn_bin_widths else "fixed bin widths"
+            state = _trained_state(exp_dir, learn_bin_widths)
+            single = make_step_fns(TRAIN_GAMMA, learn_bin_widths)
+            fns = make_sharded_step_fns(TRAIN_GAMMA, learn_bin_widths, mesh,
+                                        distributed.global_state(state, mesh))
+            noises = [(_uniform_noise(latent, 300 + 2 * i), _uniform_noise(latent, 301 + 2 * i))
+                      for i in range(DIST_STEPS)]
+            batches = [crops[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(DIST_STEPS)]
+            fns["train_step"](state, batches[0], noises[0])  # warm-up: cuDNN plans
+            torch.cuda.synchronize()
+            (gaps, grad_gap, launches) = ([], 0.0, collections.Counter())
+            current = state
+            for (batch, noise) in zip(batches, noises):
+                sharded_batch = distributed.global_batch(batch, mesh)
+                gk.reset_launch_counts()
+                got = fns["train_step"](distributed.global_state(current, mesh), sharded_batch,
+                                        noise)
+                launches.update({k: v for (k, v) in gk.LAUNCHES.items() if v})
+                rows_seen.update(gk.LAUNCH_ROWS)
+                (grads, grads_bw, loss) = fns["rd_gradients"](current, sharded_batch, noise[1])
+                (plain, plain_bw, plain_loss) = rd_gradients(
+                    current, batch, noise[1], TRAIN_GAMMA, learn_bin_widths,
+                    csts.NB_POINTS_PER_INTERVAL, csts.MAX_ITVS_PER_SIDE)
+                step_gaps = [_gap_to_max(grads[n], plain[n]) for n in plain]
+                if learn_bin_widths:
+                    step_gaps.append(_gap_to_max(grads_bw, plain_bw))
+                step_gaps.append(abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)))
+                grad_gap = max(grad_gap, max(step_gaps))
+                expected = single["train_step"](current, batch, noise)
+                gaps.append(_hold_state(f"sharded step, {tag}", distributed.fetch_replicated(
+                    got, mesh), distributed.fetch_replicated(expected, mesh)))
+                current = expected
+            if grad_gap > 1e-5:
+                raise AssertionError(f"sharded gradients, {tag}: gap {grad_gap}")
+            paths[f"distributed training, {tag}"] = dict(launches)
+            per_step = {name: DIST_STEPS * sum(1 for (v, _) in TRAIN_SITES[learn_bin_widths]
+                                               if v == name) for name in ("gdn_f32", "igdn_f32")}
+            expect_launches(f"distributed training, {tag}", dict(launches), per_step)
+            sharded_state = distributed.global_state(current, mesh)
+            sharded_batch = distributed.global_batch(batches[0], mesh)
+            sharded_ms = _median_ms(lambda: fns["train_step"](sharded_state, sharded_batch,
+                                                              noises[0]), 1, 7)
+            plain_ms = _median_ms(lambda: single["train_step"](current, batches[0], noises[0]),
+                                  1, 7)
+            print(f"  world of one over {backend.upper()}, {tag}: {DIST_STEPS} sharded "
+                  f"train_steps each against the unsharded step from the same state and noise: "
+                  f"gradients and loss within {grad_gap:.3e} of the largest entry [1e-5]; "
+                  f"largest weight gap {max(g[0] for g in gaps):.3e} "
+                  f"({max(g[1] for g in gaps)} entries outside rtol 1e-5 / atol 1e-6), "
+                  f"density table {max(g[3] for g in gaps):.3e} [2.6e-6], bin "
+                  f"widths {max(g[4] for g in gaps):.3e} [1.1e-6]; {sharded_ms:.3f} ms a sharded "
+                  f"step against {plain_ms:.3f} ms unsharded (CUDA events, median of 7) [{card}]")
+    finally:
+        distributed.shutdown()
+
+    # --- (b) the height-sharded round trip, two bands an image on the card.
+    images = synthetic_kodak(seed=0)[:BATCH]
+    bands = make_mesh(2, devices=[DEVICE, DEVICE])
+    for (exp_dir, learn_bin_widths, tag) in ((LEARNED, True, "learned"), (FIXED, False, "fixed")):
+        (params, bin_widths, _, _, _) = load_model(exp_dir)
+        roundtrip_batched(params, images, bin_widths, learn_bin_widths, BATCH, mesh=bands,
+                          spatial=True)  # warm-up
+        walls = {}
+        for (name, kwargs) in (("unsharded", dict(device=DEVICE)),
+                               ("sharded", dict(mesh=bands, spatial=True))):
+            times = []
+            for _ in range(3):
+                gk.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = roundtrip_batched(params, images, bin_widths, learn_bin_widths, BATCH,
+                                        **kwargs)
+                times.append(time.perf_counter() - t0)
+            walls[name] = (float(numpy.median(times)), out)
+            if name == "sharded":
+                record(f"spatial roundtrip, {tag}")
+        # Two bands of one batch: each band runs every GDN site once.
+        expect_launches(f"spatial roundtrip, {tag}", paths[f"spatial roundtrip, {tag}"],
+                        {"gdn_f32": 4, "igdn_f32": 4} if learn_bin_widths else
+                        {"gdn_f32": 4, "gdn_quantize_f32": 2, "igdn_f32": 6})
+        gap = float(numpy.abs(walls["sharded"][1] - walls["unsharded"][1]).max())
+        params_gpu = {k: v.cuda() for (k, v) in params.items()}
+        bw = torch.from_numpy(bin_widths).cuda()
+        batch = torch.from_numpy(images.astype(numpy.float32)).cuda()
+        whole = _quantize(params_gpu, batch, bw, learn_bin_widths)
+        pieces = split_batch(batch, bands, spatial=True)
+        banded = bands_mod.quantize_bands(params_gpu, dict(pieces.rows(0)), bw,
+                                          learn_bin_widths, bands_mod.HaloExchange(bands, 0))
+        flips = int((torch.cat([banded[0], banded[1]], dim=1) != whole).sum())
+        print(f"  height-sharded round trip, {tag} bin widths, {BATCH} x {HEIGHT} x {WIDTH} in 2 "
+              f"bands on one card: largest pixel gap against the unsharded round trip "
+              f"{gap:.3e} [{SPATIAL_GAP}]; quantised symbols differing {flips} of {whole.numel()}; "
+              f"wall {1e3 * walls['sharded'][0]:.2f} ms sharded, "
+              f"{1e3 * walls['unsharded'][0]:.2f} ms unsharded (median of 3) [{card}]")
+        if not gap < SPATIAL_GAP or flips:
+            raise AssertionError(f"height-sharded round trip, {tag}: gap {gap}, flips {flips}")
+
+    # --- (c) data-parallel serving over a two-shard mesh.
+    images = synthetic_kodak(seed=0)
+    blocks = make_mesh(1, devices=[DEVICE, DEVICE])
+    (params, bin_widths, map_mean, probabilities, idx_exc) = load_model(LEARNED)
+    for fast_path in (None, "bf16w+"):
+        tag = fast_path or "fp32"
+        got = {}
+        for (name, mesh) in (("mesh-less", None), ("mesh", blocks)):
+            compressor = PipelinedCompressor(params, bin_widths, True, probabilities, map_mean,
+                                             idx_map_exception=idx_exc, mesh=mesh,
+                                             batch_size=BATCH, fast_path=fast_path,
+                                             device=DEVICE)
+            compressor(images[:BATCH])  # warm-up
+            gk.reset_launch_counts()
+            got[name] = compressor(images)
+            if mesh is not None:
+                record(f"pipeline over a data mesh, {tag}")
+        units = 2 * (-(-images.shape[0] // BATCH))  # two data blocks a batch
+        path = f"pipeline over a data mesh, {tag}"
+        expect_launches(path, paths[path],
+                        {"gdn_f32": 2 * units, "igdn_f32": 2 * units} if fast_path is None else
+                        {"gdn_f32": 2 * units, "igdn_f32": units, "igdn_bf16": units})
+        (bits, bits_mesh) = (got["mesh-less"][1], got["mesh"][1])
+        level_gap = int(numpy.abs(got["mesh"][0].astype(int) - got["mesh-less"][0]).max())
+        print(f"  PipelinedCompressor {tag} over (data=2, model=1): bit counts "
+              f"{'identical' if numpy.array_equal(bits, bits_mesh) else 'DIFFER'} on "
+              f"{images.shape[0]} images ({int(bits.sum())} bits); reconstructions within "
+              f"{level_gap} level(s) of the mesh-less path [{card}]")
+        if not numpy.array_equal(bits, bits_mesh):
+            raise AssertionError(f"pipeline over the mesh, {tag}: bit counts differ")
+    gk.reset_launch_counts()
+    streamed = stream_roundtrip(params, bin_widths, images, BATCH, mesh=blocks, device=DEVICE)
+    record("stream roundtrip over a data mesh")
+    units = 2 * (-(-images.shape[0] // BATCH))
+    expect_launches("stream roundtrip over a data mesh", paths["stream roundtrip over a data mesh"],
+                    {"gdn_f32": 2 * units, "igdn_f32": 2 * units})
+    plain = stream_roundtrip(params, bin_widths, images, BATCH, device=DEVICE)
+    gap = float(numpy.abs(streamed - plain).max())
+    print(f"  stream_roundtrip over (data=2, model=1) against mesh-less: largest pixel gap "
+          f"{gap:.3e} [1e-3 of the pixel range]")
+    if not gap <= 1e-3 * 255.0:
+        raise AssertionError(f"stream_roundtrip over the mesh: gap {gap}")
+
+    # --- (d) the ladder spread over seven shards of the card.
+    gammas = train_ladder.GAMMAS_DEFAULT
+    states = ladder.init_ladder_state(torch.Generator().manual_seed(40), gammas, device=DEVICE)
+    fns = ladder.make_ladder_step_fns(gammas)
+    batch = crops[:TRAIN_BATCH]
+    noises = [(_uniform_noise(latent, 400 + 2 * k), _uniform_noise(latent, 401 + 2 * k))
+              for k in range(len(gammas))]
+    fns["train_step"](states, batch, noises)  # warm-up
+    plain = fns["train_step"](states, batch, noises)
+    seven = make_mesh(1, devices=[DEVICE] * len(gammas))
+    gk.reset_launch_counts()
+    sharded = fns["train_step"](ladder.shard_ladder_state(states, seven), batch, noises)
+    record("ladder over seven shards")
+    expect_launches("ladder over seven shards", paths["ladder over seven shards"],
+                    {"gdn_f32": 6 * len(gammas), "igdn_f32": 3 * len(gammas)})
+    (whole, plain_host) = (distributed.fetch_replicated(sharded),
+                           distributed.fetch_replicated(plain))
+    (worst, outside, entries) = (0.0, 0, 0)
+    for k in range(len(gammas)):
+        gaps = _hold_state(f"sharded ladder, model {k}", ladder.ladder_slice_state(whole, k),
+                           ladder.ladder_slice_state(plain_host, k))
+        (worst, outside, entries) = (max(worst, gaps[0]), outside + gaps[1], entries + gaps[2])
+    print(f"  ladder step of {len(gammas)} models over {len(gammas)} shards of the card against "
+          f"the unsharded ladder step: largest weight gap {worst:.3e}, {outside} of {entries} "
+          f"entries outside rtol 1e-5 / atol 1e-6 [{card}]")
+
+    # --- (e) the scaling report and the dry run.
+    gk.reset_launch_counts()
+    printed = _run_printing(benchmark.main, ["scaling", "--height", str(HEIGHT), "--width",
+                                             str(WIDTH), "--per_device_batch", str(BATCH),
+                                             "--device", DEVICE])
+    report = json.loads(printed.strip().splitlines()[-1])
+    if set(report["mpix_per_s"]) != {str(n) for n in range(1, torch.cuda.device_count() + 1)
+                                     if n & (n - 1) == 0} or report["efficiency"]["1"] != 1.0:
+        raise AssertionError(f"scaling report {report}")
+    print(f"  cli/benchmark scaling on {torch.cuda.device_count()} card(s): "
+          f"{report['mpix_per_s']['1']:.1f} Mpix/s on one (not a scaling figure) [{card}]")
+    summary = dryrun.dryrun_multichip(2, device=DEVICE)
+    rows_seen.update(gk.LAUNCH_ROWS)  # the report's and the dry run's row counts
+    print(f"  dryrun_multichip(2) on a two-shard mesh of one card: passed; 256 x 384 height-"
+          f"sharded against unsharded {summary['spatial_gap']:.3e} [{SPATIAL_GAP}]")
+    return (paths, rows_seen)
+
+
+def check_seen_rows(rows_seen):
+    """Every kernel against its plain version at each row count phase 9
+    launched it at (untimed where phase 2 did not time that count)."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    timed = {(name, ROWS[shape]) for (name, variant) in VARIANTS.items() for shape in variant[4]}
+    for (seed, ((name, rows), launches)) in enumerate(sorted(rows_seen.items())):
+        (_, inverse, quantize, _, _, _) = VARIANTS[name]
+        (x, *params) = kernel_inputs(name, rows, 50 + seed)
+        kernel = gk.gdn_quantize_2d if quantize else gk.gdn_2d
+        plain = gk.gdn_quantize_2d_plain if quantize else gk.gdn_2d_plain
+        got = kernel(x, *params, inverse=inverse)
+        expected = plain(x, *params, inverse=inverse)
+        torch.cuda.synchronize()
+        (max_abs, _, tolerance, detail) = check_kernel(name, rows, got, expected, params[-1])
+        print(f"  {name:17s} rows {rows:6d}: {launches} launches in phase 9; "
+              f"max abs err {max_abs:.3e} [{tolerance}] {detail}"
+              + ("; timed in phase 2" if (name, rows) in timed else ""))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -1489,6 +1860,14 @@ def main():
     print("phase 7b: the rest of serving (bf16w, int8, fixed-bw fast decode, scan graph, "
           "streaming) and the serving bench")
     path_launches.update(phase_serving_variants(kernel_results, pipeline_table, psnrs_fp32))
+    print("phase 7c: the gate on two more image sets (scan path and pipeline)")
+    phase_gate_sets()
+
+    print(f"phase 9: the distributed layer [{card}]")
+    (launches, rows_seen) = phase_distributed(card)
+    path_launches.update(launches)
+    print("  the kernels against their plain versions at the distributed paths' row counts:")
+    check_seen_rows(rows_seen)
 
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
@@ -1515,6 +1894,18 @@ def main():
     on_path += [(name, path, shape) for (path, shapes) in (("ladder training", TRAIN_SHAPES),
                                                           ("rd study", SERVE_SHAPES))
                 for name in ("gdn_f32", "igdn_f32") for shape in shapes]
+    # The distributed layer (phase 9): a band or a data block is half a
+    # serving batch; the sharded training and ladder steps keep a step's rows.
+    on_path += [(name, "spatial roundtrip, learned", shape)
+                for name in ("gdn_f32", "igdn_f32") for shape in ("S/4", "S/8")]
+    on_path += [("gdn_quantize_f32", "spatial roundtrip, fixed", "S/16"),
+                ("igdn_f32", "spatial roundtrip, fixed", "S/16"),
+                ("igdn_bf16", "pipeline over a data mesh, bf16w+", "S/4"),
+                ("gdn_f32", "pipeline over a data mesh, fp32", "S/4"),
+                ("igdn_f32", "stream roundtrip over a data mesh", "S/4")]
+    on_path += [(name, f"distributed training, {tag} bin widths", "T/4")
+                for name in ("gdn_f32", "igdn_f32") for tag in ("learned", "fixed")]
+    on_path += [(name, "ladder over seven shards", "T/16") for name in ("gdn_f32", "igdn_f32")]
     kernels = []
     for (name, path, shape) in on_path:
         launches = path_launches[path][name]

@@ -56,6 +56,28 @@ def _t(*arrays):
 CASES = [(300, None), (77, None), (300, (LEARNED, 1)), (77, (LEARNED, 6))]
 
 
+@pytest.fixture(autouse=True)
+def true_fp32_matmul():
+    """The plain versions' pools in true fp32 while a test runs, whatever
+    another test of the same process left set: PyTorch's fp32 matmul
+    precision is process-wide, and at "medium" (or with oneDNN's fp32
+    matmuls in bf16) a CPU with AMX-BF16 rounds the pool's operands to
+    bf16, some 5e-4 off. Restored afterwards."""
+    saved = (torch.get_float32_matmul_precision(), torch.backends.mkldnn.matmul.fp32_precision)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.matmul.fp32_precision = "ieee"
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.mkldnn.matmul.fp32_precision = saved[1]
+
+
+def _gdn_float64(x, gamma, beta, inverse):
+    """The oracle of both sides: GDN / IGDN in float64 numpy."""
+    x = x.astype(numpy.float64)
+    pool = numpy.square(x) @ gamma.astype(numpy.float64) + beta.astype(numpy.float64)
+    return x * (numpy.sqrt(pool) if inverse else 1.0 / numpy.sqrt(pool))
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("rows,trained", CASES)
 def test_gdn_fp32_matches_pallas(rows, trained, inverse):
@@ -65,6 +87,13 @@ def test_gdn_fp32_matches_pallas(rows, trained, inverse):
                                            interpret=True))
     got = gdn_2d(*_t(x, gamma, beta), inverse=inverse)
     assert got.dtype == torch.float32 and tuple(got.shape) == (rows, 128)
+    # Each side against float64 first, so that a failure names the side
+    # that left fp32 (both sit within 3e-7 of it here).
+    oracle = _gdn_float64(x, gamma, beta, inverse)
+    for (side, values) in (("the JAX package's Pallas kernel", expected),
+                           ("the port's plain version", got.numpy())):
+        numpy.testing.assert_allclose(values, oracle, rtol=1e-5, atol=1e-6,
+                                      err_msg=f"{side} against float64")
     # fp32 on both sides; only the order of the 128-term pool sum differs.
     numpy.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-6)
 

@@ -1,6 +1,7 @@
-"""PyTorch port: no port module, nor chip_smoke.py or bench_torch.py, imports JAX, optax
-or the JAX package (an AST walk: a text search would be fooled by the
-port's own package name, which extends the JAX package's)."""
+"""PyTorch port: no port module, nor chip_smoke.py, bench_torch.py or the
+two-process tests' worker, imports JAX, optax or the JAX package (an AST
+walk: a text search would be fooled by the port's own package name, which
+extends the JAX package's)."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "autoencoder_based_image_compression_tpu"
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py"),
+             os.path.join(REPO, "tests", "torch_distributed_worker.py")]
     for (root, _, names) in os.walk(os.path.join(REPO, PORT)):
         files.extend(os.path.join(root, n) for n in names if n.endswith(".py"))
     return sorted(files)
@@ -61,6 +63,11 @@ def test_walk_sees_the_whole_port():
     for name in ("engine/quantized.py", "parallel/continuous_batching.py",
                  "eval/throughput.py", "eval/roofline.py", "eval/gate_probe.py",
                  "eval/serving_bench.py", "eval/workload.py", "cli/benchmark.py"):
+        assert f"{PORT}/{name}" in rel
+    # The distributed layer.
+    for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                 "parallel/sharding.py", "parallel/train_parallel.py", "parallel/spatial.py",
+                 "dryrun.py"):
         assert f"{PORT}/{name}" in rel
     assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.

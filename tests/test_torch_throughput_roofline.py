@@ -19,6 +19,7 @@ from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
     synthetic_luminance_stack,
 )
 from autoencoder_based_image_compression_tpu_torch.eval import roofline, throughput
+from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
     load_params_artifact,
     params_from_jax,
@@ -136,13 +137,37 @@ def test_benchmark_cli_profile_default_trace_dir_is_under_the_working_directory(
     assert os.path.isfile(tmp_path / "build" / "aeic_trace" / "roundtrip_trace.json")
 
 
-def test_benchmark_cli_scaling_raises_and_cuda_is_the_default():
-    with pytest.raises(NotImplementedError, match="distributed layer"):
-        benchmark.main(["scaling", "--device", "cpu"])
+def test_benchmark_cli_scaling_raises_and_cuda_is_the_default(capsys):
+    """``scaling`` runs over the distributed layer now (it raised before the
+    port had one); without a card the default device still raises."""
+    benchmark.main(["scaling", "--height", "32", "--width", "48", "--per_device_batch", "2",
+                    "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out.strip())
+    assert report["device"] == "cpu" and set(report["mpix_per_s"]) == {"1"}
+    assert report["efficiency"] == {"1": 1.0} and report["mpix_per_s"]["1"] > 0.0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             benchmark.main(["parity", "--nb_images", "1", "--height", "32", "--width", "32"])
-    assert not hasattr(throughput, "scaling_report")
+        with pytest.raises(RuntimeError, match="cuda"):
+            benchmark.main(["scaling", "--height", "32", "--width", "32"])
+
+
+@pytest.mark.parametrize("model_parallelism", [1, 2])
+def test_scaling_report_over_cpu_meshes(model_parallelism):
+    """The report's rows over meshes of 1, 2 and 4 CPU shards, against the
+    JAX package's keys; on the CPU the numbers are no scaling figure."""
+    params = conv_eae.init_conv_eae_params(torch.Generator().manual_seed(0), True)
+    report = throughput.scaling_report(params, numpy.ones(128, numpy.float32), (32, 32), 2,
+                                       model_parallelism=model_parallelism, repeats=1,
+                                       devices=["cpu"] * 4)
+    expected_rows = [1, 2, 4] if model_parallelism == 1 else [2, 4]
+    assert sorted(report["mpix_per_s"]) == expected_rows
+    assert set(report) == {"mpix_per_s", "efficiency"}
+    assert all(value > 0.0 for value in report["mpix_per_s"].values())
+    if model_parallelism == 1:
+        assert report["efficiency"][1] == 1.0
+    else:
+        assert set(report["efficiency"].values()) == {None}
 
 
 def test_benchmark_cli_loads_a_checkpoint(tmp_path, capsys):

@@ -13,6 +13,9 @@ from autoencoder_based_image_compression_tpu.models import conv_eae as jax_eae
 from autoencoder_based_image_compression_tpu.ops.quantization import (
     cast_bt601 as jax_cast_bt601,
 )
+from autoencoder_based_image_compression_tpu.ops.quantization import (
+    cast_uint8 as jax_cast_uint8,
+)
 from autoencoder_based_image_compression_tpu.ops.metrics import psnr_2d
 from autoencoder_based_image_compression_tpu.train.checkpoint import (
     load_params_artifact as jax_load_params_artifact,
@@ -22,7 +25,10 @@ from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
 )
 from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
 from autoencoder_based_image_compression_tpu_torch.models import conv_eae
-from autoencoder_based_image_compression_tpu_torch.ops.quantization import cast_bt601
+from autoencoder_based_image_compression_tpu_torch.ops.quantization import (
+    cast_bt601,
+    cast_uint8,
+)
 from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
     load_params_artifact,
     params_from_jax,
@@ -264,3 +270,25 @@ def test_bf16wplus_mix_inside_gate_against_fp32_decode(multiplier):
     # +0.0018 at x4, -0.0241 at x10 (small crops move more than the
     # 512 x 768 images of the on-card check).
     assert min(deltas) >= -0.05
+
+
+def test_cast_uint8_matches_jax_on_ties_and_out_of_range_values():
+    values = numpy.array([-300.0, -0.5, -0.49, 0.0, 0.5, 1.5, 2.5, 127.5, 128.5, 254.5, 254.51,
+                          255.0, 255.5, 256.0, 1e6, numpy.float32(3.4e38)], numpy.float32)
+    rng = numpy.random.default_rng(9)
+    values = numpy.concatenate([values, rng.uniform(-20.0, 275.0, 1000).astype(numpy.float32)])
+    expected = numpy.asarray(jax_cast_uint8(jnp.asarray(values)))
+    got = cast_uint8(torch.from_numpy(values))
+    assert got.dtype == torch.uint8
+    numpy.testing.assert_array_equal(got.numpy(), expected)
+    # The numpy form returns numpy, as the JAX package's does.
+    numpy.testing.assert_array_equal(cast_uint8(values), jax_cast_uint8(values))
+    # Ties round half to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2, 254.5 -> 254.
+    assert cast_uint8(numpy.array([0.5, 1.5, 2.5, 254.5])).tolist() == [0, 2, 2, 254]
+
+
+def test_port_version_equals_the_reference_package_version():
+    import autoencoder_based_image_compression_tpu as jax_package
+    import autoencoder_based_image_compression_tpu_torch as port
+
+    assert port.__version__ == jax_package.__version__
