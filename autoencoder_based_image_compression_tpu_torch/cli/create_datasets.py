@@ -2,8 +2,8 @@
 
 Counterpart of the reference's ``creating_kodak.py``, ``creating_bsds.py``,
 ``creating_imagenet.py`` and ``creating_extra.py`` folded into
-subcommands (the ``svhn`` choice is parsed but its creator is not ported
-yet). ``--source_dir`` points at already-fetched
+subcommands, with ``svhn/creating_svhn.py`` as the ``svhn`` choice.
+``--source_dir`` points at already-fetched
 files; ``--download`` opts into fetching missing Kodak/BSDS/SVHN
 sources the way the reference's creators do (``data/download.py``).
 ILSVRC2012 archives stay manual, as in the reference
@@ -60,9 +60,17 @@ def main(args=None):
 
         create_extra([args.source_dir], f"{out}/extra/extra_data.npy")
     else:
-        raise NotImplementedError(
-            "create_datasets svhn: not ported yet (SVHN side, queue A14); "
-            "data/svhn.py has no counterpart in this package so far.")
+        from autoencoder_based_image_compression_tpu_torch.data.download import (
+            ensure_svhn_mats)
+        from autoencoder_based_image_compression_tpu_torch.data.svhn import create_svhn
+
+        if args.download:
+            ensure_svhn_mats(args.source_dir, allow_download=True)
+        create_svhn(args.source_dir, f"{out}/svhn/training_data.npy",
+                    f"{out}/svhn/validation_data.npy", f"{out}/svhn/test_data.npy",
+                    nb_training=args.nb_svhn_training,
+                    nb_validation=args.nb_svhn_validation,
+                    nb_test=args.nb_svhn_test)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,14 @@ either package loads in the other:
   reference's HWIO on save (:func:`params_to_jax`) and to this package's
   layouts on load (:func:`params_from_jax`).
 
+The SVHN side's states, :class:`DenseEaeState` and :class:`VaeState`,
+take the same way under the reference's keys (``.params['we_l1']``,
+``.momentum['we_l1']``, ``.density.parameters``, ``.bin_width``,
+``.step``); their dense weights are ``(in, out)`` in both packages and
+carry across unchanged. A VAE has no density, so its sidecar says
+``"nb_itvs_per_side": null``; the reference package loads such a
+checkpoint, although its own VAE trainer fails to write one.
+
 Many leaves share a shape (all GDN gammas are (128, 128)), so a renamed,
 missing, extra or reshaped key raises at load instead of mapping onto
 another tensor. An existing checkpoint is not overwritten unless asked.
@@ -28,6 +36,8 @@ import numpy
 import torch
 
 from autoencoder_based_image_compression_tpu_torch.constants import CONV_NAMES
+from autoencoder_based_image_compression_tpu_torch.models.dense_eae import DenseEaeState
+from autoencoder_based_image_compression_tpu_torch.models.vae import VaeState
 from autoencoder_based_image_compression_tpu_torch.ops.density import DensityTable
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     AdamState,
@@ -176,19 +186,108 @@ def state_from_jax(arrays):
         step=tensor(".step", numpy.int32))
 
 
+def _numpy_group(prefix, tensors):
+    return {f"{prefix}['{name}']": tensor.detach().cpu().numpy()
+            for (name, tensor) in tensors.items()}
+
+
+def _svhn_groups(arrays, what, leaf_keys):
+    """``(params, momentum, leaves)`` of an SVHN state's arrays, numpy;
+    raises on a missing or unexpected key and on momentum buffers whose
+    names differ from the parameters'."""
+    groups = {".params": {}, ".momentum": {}}
+    leaves = {}
+    for (key, value) in arrays.items():
+        (prefix, name) = _split_key(key)
+        if name is not None and prefix in groups:
+            groups[prefix][name] = value
+        else:
+            leaves[key] = value
+    missing = [key for key in leaf_keys if key not in leaves]
+    extra = sorted(set(leaves) - set(leaf_keys))
+    if missing or extra or not groups[".params"]:
+        raise ValueError(f"Not a {what}: missing {missing}, unexpected {extra}, "
+                         f"{len(groups['.params'])} parameters.")
+    if set(groups[".momentum"]) != set(groups[".params"]):
+        raise ValueError(".momentum and .params hold different names.")
+    return (groups[".params"], groups[".momentum"], leaves)
+
+
+def _tensors(arrays, dtype=numpy.float32):
+    return {name: torch.from_numpy(numpy.array(value, dtype=dtype))
+            for (name, value) in arrays.items()}
+
+
+_DENSE_LEAVES = (".density.parameters", ".density.nb_itvs_per_side", ".bin_width", ".step")
+
+
+def dense_state_to_jax(state):
+    """A :class:`DenseEaeState` -> ``{checkpoint key: numpy array}`` in the
+    reference's key scheme (weights ``(in, out)`` in both packages)."""
+    arrays = {**_numpy_group(".params", state.params),
+              **_numpy_group(".momentum", state.momentum)}
+    arrays[".density.parameters"] = state.density.parameters.cpu().numpy()
+    arrays[".density.nb_itvs_per_side"] = state.density.nb_itvs_per_side.cpu().numpy()
+    arrays[".bin_width"] = state.bin_width.cpu().numpy()
+    arrays[".step"] = state.step.cpu().numpy()
+    return arrays
+
+
+def dense_state_from_jax(arrays):
+    """The inverse of :func:`dense_state_to_jax`: a :class:`DenseEaeState`
+    of CPU tensors."""
+    (params, momentum, leaves) = _svhn_groups(arrays, "dense EAE state", _DENSE_LEAVES)
+    (floats, ints) = (_tensors(leaves), _tensors(leaves, numpy.int32))
+    return DenseEaeState(
+        params=_tensors(params), momentum=_tensors(momentum),
+        density=DensityTable(floats[".density.parameters"], ints[".density.nb_itvs_per_side"]),
+        bin_width=floats[".bin_width"], step=ints[".step"])
+
+
+def vae_state_to_jax(state):
+    """A :class:`VaeState` -> ``{checkpoint key: numpy array}``."""
+    return {**_numpy_group(".params", state.params),
+            **_numpy_group(".momentum", state.momentum),
+            ".step": state.step.cpu().numpy()}
+
+
+def vae_state_from_jax(arrays):
+    """The inverse of :func:`vae_state_to_jax`: a :class:`VaeState` of CPU
+    tensors."""
+    (params, momentum, leaves) = _svhn_groups(arrays, "VAE state", (".step",))
+    return VaeState(params=_tensors(params), momentum=_tensors(momentum),
+                    step=_tensors(leaves, numpy.int32)[".step"])
+
+
+# State type -> (to reference arrays, from reference arrays).
+_CONVERTERS = {
+    TrainState: (state_to_jax, state_from_jax),
+    DenseEaeState: (dense_state_to_jax, dense_state_from_jax),
+    VaeState: (vae_state_to_jax, vae_state_from_jax),
+}
+
+
+def _converters(state):
+    if type(state) not in _CONVERTERS:
+        raise TypeError(f"no checkpoint format for a {type(state).__name__}.")
+    return _CONVERTERS[type(state)]
+
+
 def save_checkpoint(path, state, allow_overwrite=False):
-    """Writes a state to ``<path>.npz`` and then ``<path>.json`` (meta)."""
+    """Writes a state (:class:`TrainState`, :class:`DenseEaeState` or
+    :class:`VaeState`) to ``<path>.npz`` and then ``<path>.json`` (meta)."""
     npz_path = path + ".npz"
     if os.path.isfile(npz_path) and not allow_overwrite:
         raise FileExistsError(
             f"{npz_path} already exists; refusing to overwrite a checkpoint.")
-    arrays = state_to_jax(state)
+    arrays = _converters(state)[0](state)
     os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
     numpy.savez(npz_path, **arrays)
+    nb_itvs = arrays.get(".density.nb_itvs_per_side")
     meta = {
         "nb_leaves": len(arrays),
         "step": int(arrays[".step"]),
-        "nb_itvs_per_side": int(arrays[".density.nb_itvs_per_side"]),
+        "nb_itvs_per_side": None if nb_itvs is None else int(nb_itvs),
         # Per-epoch saves are intermediate until the training part
         # finishes and calls mark_checkpoint_complete.
         "part_complete": False,
@@ -201,7 +300,7 @@ def load_checkpoint(path, template):
     """Restores a state saved by :func:`save_checkpoint` (of either
     package), onto the device of ``template``.
 
-    ``template`` is a state of the same structure (e.g. from
+    ``template`` is a state of the same type and structure (e.g. from
     ``init_train_state`` with the same experiment configuration): its
     keys and shapes select the stored arrays, so a renamed, missing,
     extra or reshaped leaf raises.
@@ -215,7 +314,8 @@ def load_checkpoint(path, template):
             f"{path}.json is missing: {path}.npz is a half-written "
             "checkpoint (the meta sidecar is written last). Delete the "
             "leftover npz and resume from the previous part.")
-    wanted = state_to_jax(template)
+    (to_jax, from_jax) = _converters(template)
+    wanted = to_jax(template)
     with numpy.load(path + ".npz") as data:
         stored = set(data.files)
         missing = [key for key in wanted if key not in stored]
@@ -229,7 +329,7 @@ def load_checkpoint(path, template):
         if tuple(arrays[key].shape) != tuple(leaf.shape):
             raise ValueError(f"Leaf {key}: checkpoint shape {arrays[key].shape} != "
                              f"template shape {leaf.shape}.")
-    return state_to(state_from_jax(arrays), template.step.device)
+    return state_to(from_jax(arrays), template.step.device)
 
 
 def checkpoint_exists(path):

@@ -72,8 +72,13 @@ def map_state(fn, *states):
 
 
 def state_to(state, device):
-    """The state with every leaf moved to ``device``."""
-    return map_state(lambda leaf: leaf.to(device), state)
+    """The state (a :class:`TrainState`, or an SVHN state: named tuples
+    and dicts of tensors) with every leaf moved to ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, dict):
+        return {name: state_to(leaf, device) for (name, leaf) in state.items()}
+    return type(state)(*(state_to(leaf, device) for leaf in state))
 
 
 def init_adam(params):

@@ -15,7 +15,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    GDN/IGDN in fp32 and GDN+quantise; the bench's batch of 24: rows
    589,824 and 147,456 for all four, 36,864 for IGDN in fp32; training, a
    10 x 256 x 256 batch: rows 40,960, 10,240 and 2,560 for GDN/IGDN in
-   fp32), and at ragged row counts; then the gradient of the fp32 kernel's ``GdnFunction`` against
+   fp32; one of two shards of the serving batch, or the tooling's two images:
+   rows 49,152, 12,288 and 3,072; the tooling's 16 x 16 probe latent: rows
+   4,096, 1,024 and 256 for IGDN in fp32), and at ragged row counts; then
+   the gradient of the fp32 kernel's ``GdnFunction`` against
    autograd through the plain version;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
@@ -73,7 +76,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 7c. the gate on two more image sets (``synthetic_kodak`` seeds 15 and 16)
    through the scan path and the pipeline: fails unless both serving
    "bf16w+" mixes hold -0.05 dB on every image at multipliers 1, 4 and 10;
-9. the distributed layer (run before phase 8, which reports its kernels):
+9. the distributed layer (run, as 10 and 11, before phase 8, which reports
+   their kernels):
    (a) a world of one over NCCL: ``initialize``, ``make_global_mesh(1)``,
    ``global_state`` and 6 sharded ``train_step``s of both architectures at
    batch 10 of 256 x 256 from the trained weights, each held against the
@@ -90,6 +94,30 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    seven-shard mesh against the unsharded ladder step; (e) ``cli/benchmark
    scaling`` and ``dryrun_multichip(2)``. Then every kernel against its
    plain version at each row count these paths launched it at;
+10. the SVHN side at full width (3072-300-200, the VAE 3072-300-25) on
+   ``synthetic_svhn(2000)`` at batch 250, where no GDN kernel runs: one
+   ``training_fct`` and one ``training_eae_bw`` from one state and one
+   ``eps``, card against the port's CPU run (each weight within 1e-6 +
+   1e-5 |w|; density samples in another linear piece counted); the overfit
+   harness (the objective must fall); ``cli/train_svhn`` for 3 epochs (the
+   checkpoint loads back equal) and ``cli/reconstruct_svhn`` on it (the
+   rate must not rise with the multiplier); ``cli/compare_entropy_approximations``
+   at 20,000 samples card against CPU (within 1e-3 bits an entry), then at
+   200,000 with its time; one VAE step card against CPU and ``cli/train_vae``
+   train (-VLB must fall), reconstruct and generate; ms per alternation, per
+   reference epoch of 800 batches and per VAE step, and the kernels' time
+   in a profiler trace of each;
+11. the latent-analysis tooling on both trained models, from full
+   checkpoints in a temporary root, on ``synthetic_kodak(seed=14)``:
+   ``cli/latent_analysis fit`` (finite positive scales, latents within
+   rtol 1e-5 / atol 1e-4 of the CPU encode), the activation probe at
+   (2, 2) and (8, 8) (translation covariant within one level), ``mask_maps``
+   (against the CPU's decode), ``visualize_model``'s arrays, and
+   ``import_reference_variables`` on a reference-named dict (decodes equal
+   to the loaded model), with the GDN launches of each path; the
+   image-writing command lines only where PIL and matplotlib import
+   (printed either way). Then every kernel against its plain version at
+   each row count these paths launched it at;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 10. the result line ``{"ok": true, "device": {...}}``, last.
 
@@ -155,6 +183,14 @@ RAGGED_EXTRA = 37
 TRAIN_GAMMA = 10000.0
 DEVICE = "cuda"
 (TRAIN_IMAGES, TRAIN_EPOCHS, EXTRA_IMAGES, SERVED_IMAGES) = (120, 3, 20, 4)
+# The SVHN side at full width (3072-300-200, the VAE 3072-300-25): 2,000
+# synthetic digits at batch 250; the reference trains 800 batches an epoch.
+(SVHN_DIGITS, SVHN_BATCH, SVHN_EPOCHS, SVHN_REFERENCE_BATCHES) = (2000, 250, 3, 800)
+(SVHN_GAMMA, ENTROPY_SAMPLES, ENTROPY_GAP_BITS) = (5.0, 20000, 1e-3)
+# The tooling: a 16 x 16 probe latent (256 x 256 pixels), 4 images for the
+# Laplace fit and the masking, 2 for visualize_model (the rows of a shard).
+(PROBE_PIXELS, TOOL_IMAGES, VIEW_IMAGES) = (256 * 256, 4, BATCH // 2)
+PROBE_SHIFT = 96  # pixels between the probe's positions (2, 2) and (8, 8)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256,
         # One of two shards of the serving batch: a height band or a data block.
@@ -163,11 +199,14 @@ ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64
         "B/4": BENCH_BATCH * HEIGHT * WIDTH // 16, "B/8": BENCH_BATCH * HEIGHT * WIDTH // 64,
         "B/16": BENCH_BATCH * HEIGHT * WIDTH // 256,
         "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
-        "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256}
+        "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256,
+        # The activation probe decodes one 16 x 16 latent (256 x 256 pixels).
+        "A/4": PROBE_PIXELS // 16, "A/8": PROBE_PIXELS // 64, "A/16": PROBE_PIXELS // 256}
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
 SERVE_SHAPES = ("H/4", "H/8", "H/16")
 BENCH_SHAPES = ("B/4", "B/8")
 SHARD_SHAPES = ("S/4", "S/8", "S/16")
+PROBE_SHAPES = ("A/4", "A/8", "A/16")
 # The distributed layer: sharded steps held against unsharded ones, the
 # height-sharded round trip's gate, and the two image sets of the gate's
 # wider probe.
@@ -194,9 +233,10 @@ TRAIN_SITES = {
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
     "gdn_f32": (torch.float32, False, False, (LEARNED, 1),
-                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("S/4", "S/8"), 26),
+                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + SHARD_SHAPES, 26),
     "igdn_f32": (torch.float32, True, False, (LEARNED, 6),
-                 SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",) + SHARD_SHAPES, 26),
+                 SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",) + SHARD_SHAPES
+                 + PROBE_SHAPES, 26),
     "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8") + BENCH_SHAPES, 26),
     "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6),
                   ("H/4", "H/8") + BENCH_SHAPES + ("S/4",), 26),
@@ -1094,15 +1134,15 @@ def phase_training(kernel_results, learn_bin_widths):
 
 
 def _run_printing(main, args):
-    """``main(args)`` with what it prints shown indented and returned."""
+    """``(main(args), what it printed)``, the printed lines shown indented."""
     captured = io.StringIO()
     with contextlib.redirect_stdout(captured):
-        main(args)
+        result = main(args)
     printed = captured.getvalue()
     for line in printed.splitlines():
         if line.strip():
             print(f"    | {line}")
-    return printed
+    return (result, printed)
 
 
 def phase_ladder():
@@ -1180,7 +1220,7 @@ def phase_ladder():
             return ladder.ladder_stack_states(
                 [checkpoint.load_checkpoint(path, template) for path in paths])
 
-        printed = _run_printing(train_ladder.main, cli_args(0))
+        (_, printed) = _run_printing(train_ladder.main, cli_args(0))
         part_launches = dict(gk.LAUNCHES)
         trained = load_part(1)
         try:
@@ -1189,7 +1229,7 @@ def phase_ladder():
             print(f"  part 0 again: refused ({error})")
         else:
             raise AssertionError("part 0 was retrained over its checkpoints")
-        printed_1 = _run_printing(train_ladder.main, cli_args(1))
+        (_, printed_1) = _run_printing(train_ladder.main, cli_args(1))
         resumed = load_part(2)
     # Part 0: the pre-fit encodes once a batch and model; each of the two
     # evaluations (training and validation portion) encodes and decodes once
@@ -1450,7 +1490,7 @@ def phase_rd_study():
                            numpy.load(os.path.join(COMMITTED_RD, f"{kind}_{stem}.npy")))
             path_images = os.path.join(cache_dir, "kodak.npy")
             numpy.save(path_images, images)
-            printed = _run_printing(reconstruct_kodak.main, [
+            (_, printed) = _run_printing(reconstruct_kodak.main, [
                 "--code_lossless", "--path_to_kodak", path_images, "--results_root",
                 RESULTS_ROOT, "--cache_dir", cache_dir, "--jpeg2000_backend", "pillow",
                 "--device", DEVICE])
@@ -1777,9 +1817,9 @@ def phase_distributed(card):
 
     # --- (e) the scaling report and the dry run.
     gk.reset_launch_counts()
-    printed = _run_printing(benchmark.main, ["scaling", "--height", str(HEIGHT), "--width",
-                                             str(WIDTH), "--per_device_batch", str(BATCH),
-                                             "--device", DEVICE])
+    (_, printed) = _run_printing(benchmark.main, [
+        "scaling", "--height", str(HEIGHT), "--width", str(WIDTH), "--per_device_batch",
+        str(BATCH), "--device", DEVICE])
     report = json.loads(printed.strip().splitlines()[-1])
     if set(report["mpix_per_s"]) != {str(n) for n in range(1, torch.cuda.device_count() + 1)
                                      if n & (n - 1) == 0} or report["efficiency"]["1"] != 1.0:
@@ -1793,8 +1833,362 @@ def phase_distributed(card):
     return (paths, rows_seen)
 
 
-def check_seen_rows(rows_seen):
-    """Every kernel against its plain version at each row count phase 9
+def _svhn_state_gaps(got, expected):
+    """``(largest weight gap, weight entries outside 1e-6 + 1e-5 |w|,
+    entries)`` between two SVHN states' parameters (card against CPU)."""
+    (worst, outside, entries) = (0.0, 0, 0)
+    for (name, value) in expected.params.items():
+        gap = (got.params[name].cpu() - value).abs()
+        worst = max(worst, float(gap.max()))
+        outside += int((gap > 1e-6 + 1e-5 * value.abs()).sum())
+        entries += gap.numel()
+    return (worst, outside, entries)
+
+
+def phase_svhn(card):
+    """The SVHN side at full width on the card: the dense EAE's two
+    phases and the VAE's step held against the port's CPU run from one
+    state and one noise, the overfit harness, ``cli/train_svhn`` then
+    ``cli/reconstruct_svhn``, the entropy study, and ``cli/train_vae``.
+    Its matmuls are ``torch.matmul`` in true fp32; no GDN kernel runs."""
+    from autoencoder_based_image_compression_tpu_torch.cli import (
+        compare_entropy_approximations,
+        overfit_svhn,
+        reconstruct_svhn,
+        train_svhn,
+        train_vae,
+    )
+    from autoencoder_based_image_compression_tpu_torch.data.svhn import (
+        compute_preprocessing_stats,
+        preprocess_svhn,
+        synthetic_svhn,
+    )
+    from autoencoder_based_image_compression_tpu_torch.models import dense_eae, vae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint
+    from autoencoder_based_image_compression_tpu_torch.train.state import state_to
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    digits_uint8 = synthetic_svhn(SVHN_DIGITS, seed=0)
+    (mean, std) = compute_preprocessing_stats(digits_uint8)
+    digits = torch.from_numpy(preprocess_svhn(digits_uint8, mean, std))
+    (batch_cpu, batch) = (digits[:SVHN_BATCH], digits[:SVHN_BATCH].to(DEVICE))
+    gk.reset_launch_counts()
+
+    # --- (1) one alternation, card against CPU, from one state and one eps.
+    fns = dense_eae.make_dense_step_fns(SVHN_GAMMA, True)
+    state_cpu = dense_eae.init_dense_eae_state(torch.Generator().manual_seed(0), device="cpu")
+    noise = torch.Generator().manual_seed(1)
+    latent = (SVHN_BATCH, state_cpu.params["we_latent"].shape[1])
+    for i in range(2):  # two alternations on the CPU: momentum and density not at rest
+        eps = dense_eae.uniform_eps(noise, latent, "cpu")
+        rows = digits[(i + 1) * SVHN_BATCH:(i + 2) * SVHN_BATCH]
+        state_cpu = fns["training_eae_bw"](fns["training_fct"](state_cpu, rows, eps), rows, eps)
+    state = state_to(state_cpu, DEVICE)
+    eps = dense_eae.uniform_eps(noise, latent, "cpu")
+    expected = fns["training_eae_bw"](fns["training_fct"](state_cpu, batch_cpu, eps),
+                                      batch_cpu, eps)
+    got = fns["training_eae_bw"](fns["training_fct"](state, batch, eps.to(DEVICE)), batch,
+                                 eps.to(DEVICE))
+    (worst, outside, entries) = _svhn_state_gaps(got, expected)
+    density = float((got.density.parameters.cpu() - expected.density.parameters).abs().max())
+    bw = abs(float(got.bin_width) - float(expected.bin_width))
+    with torch.no_grad():
+        pieces = [torch.floor(dense_eae.PPI * (dense_eae.encoder(s.params, b)[1].cpu()
+                                               + float(s.bin_width) * eps))
+                  for (s, b) in ((state, batch), (state_cpu, batch_cpu))]
+    flips = int((pieces[0] != pieces[1]).sum())
+    print(f"  dense EAE, one training_fct + training_eae_bw at {SVHN_BATCH} x 3072-300-200 from "
+          f"one state and one eps, card against CPU: largest weight gap {worst:.3e} ({outside} "
+          f"of {entries} entries outside 1e-6 + 1e-5 |w|), density table {density:.3e}, bin "
+          f"width {bw:.3e}; {flips} of {pieces[0].numel()} density samples in another linear "
+          "piece")
+    if outside or bw > 1e-6 or density > 1e-4 * (1 + flips):
+        raise AssertionError(f"dense EAE step on the card: weights {worst} ({outside} outside), "
+                             f"density {density}, bin width {bw}")
+    eps_card = eps.to(DEVICE)
+
+    def alternation():
+        return fns["training_eae_bw"](fns["training_fct"](state, batch, eps_card), batch,
+                                      eps_card)
+
+    alternation_ms = _median_ms(alternation, 1, 9)
+    alternation_trace = traced_device_ms(alternation, 10, top=4)
+
+    # --- (2) the overfit harness: 10 digits, 20 pre-fits, 200 alternations.
+    (objectives, _) = _run_printing(overfit_svhn.main, [
+        "--nb_examples", "10", "--nb_epochs", "200", "--learn_bin_width", "--device", DEVICE])
+    print(f"  overfit_svhn (10 digits, 20 pre-fits, 200 alternations): objective "
+          + " -> ".join(f"{o:.4f}" for o in objectives))
+    if not objectives[-1] < objectives[0]:
+        raise AssertionError(f"overfit harness: the objective did not fall {objectives}")
+
+    with tempfile.TemporaryDirectory() as root:
+        # --- (3) cli/train_svhn, then cli/reconstruct_svhn on its checkpoint.
+        t0 = time.perf_counter()
+        (trained, _) = _run_printing(train_svhn.main, [
+            "1.0", str(SVHN_GAMMA), "--learn_bin_width", "--synthetic", "--nb_epochs_training",
+            str(SVHN_EPOCHS), "--results_root", root, "--device", DEVICE])
+        train_s = time.perf_counter() - t0
+        exp_dir = os.path.join(root, experiment_suffix(1.0, SVHN_GAMMA, True))
+        template = dense_eae.init_dense_eae_state(torch.Generator().manual_seed(5),
+                                                  device=DEVICE)
+        loaded = checkpoint.load_checkpoint(os.path.join(exp_dir, "model"), template)
+        with numpy.load(os.path.join(exp_dir, "model.npz")) as data:
+            saved = {key: data[key] for key in data.files}
+        (back, kept) = (checkpoint.dense_state_to_jax(loaded),
+                        checkpoint.dense_state_to_jax(trained))
+        if not (set(back) == set(saved) == set(kept) and all(
+                numpy.array_equal(back[k], saved[k]) and numpy.array_equal(kept[k], saved[k])
+                for k in saved)):
+            raise AssertionError("the train_svhn checkpoint did not load back equal")
+        if int(loaded.step) != SVHN_EPOCHS * (SVHN_DIGITS // SVHN_BATCH):
+            raise AssertionError(f"train_svhn: step {int(loaded.step)}")
+        ((rates, psnrs), _) = _run_printing(reconstruct_svhn.main, [
+            "1.0", str(SVHN_GAMMA), "--learn_bin_width", "--results_root", root, "--device",
+            DEVICE])
+        print(f"  cli/train_svhn, {SVHN_EPOCHS} epochs of {SVHN_DIGITS // SVHN_BATCH} batches on "
+              f"the card: {train_s:.2f} s; checkpoint loads back equal to the trained state "
+              f"(step {int(loaded.step)}); cli/reconstruct_svhn: rate falls from {rates[0]:.4f} "
+              f"to {rates[-1]:.4f} bpp over the multipliers")
+        if not (numpy.all(numpy.diff(rates) <= 1e-12) and numpy.all(numpy.isfinite(psnrs))):
+            raise AssertionError(f"reconstruct_svhn: rates {rates}, PSNRs {psnrs}")
+
+        # --- (5) the VAE: one step card against CPU, then cli/train_vae.
+        step = vae.make_vae_step_fn(1.0)
+        vae_cpu = vae.init_vae_state(torch.Generator().manual_seed(6), device="cpu")
+        vae_cpu = step(vae_cpu, digits[SVHN_BATCH:2 * SVHN_BATCH],
+                       torch.Generator().manual_seed(7))
+        vae_card = state_to(vae_cpu, DEVICE)
+        epsilon = torch.randn((SVHN_BATCH, 25), generator=torch.Generator().manual_seed(8))
+        (worst_vae, outside_vae, entries_vae) = _svhn_state_gaps(
+            step(vae_card, batch, epsilon.to(DEVICE)), step(vae_cpu, batch_cpu, epsilon))
+        epsilon_card = epsilon.to(DEVICE)
+        vae_ms = _median_ms(lambda: step(vae_card, batch, epsilon_card), 1, 9)
+        vae_trace = traced_device_ms(lambda: step(vae_card, batch, epsilon_card), 10, top=4)
+        print(f"  VAE, one step at {SVHN_BATCH} x 3072-300-25 from one state and one draw, card "
+              f"against CPU: largest weight gap {worst_vae:.3e} ({outside_vae} of {entries_vae} "
+              "entries outside 1e-6 + 1e-5 |w|)")
+        if outside_vae:
+            raise AssertionError(f"VAE step on the card: {outside_vae} weights outside")
+        vae_root = os.path.join(root, "vae")
+        common = ["--results_root", vae_root, "--device", DEVICE, "--path_to_training_data",
+                  os.path.join(root, "missing.npy")]
+        (losses, _) = _run_printing(train_vae.main,
+                                     ["train", "--nb_epochs_training", str(SVHN_EPOCHS)] + common)
+        (rec, _) = _run_printing(train_vae.main, ["reconstruct"] + common)
+        (samples, _) = _run_printing(train_vae.main, ["generate"] + common)
+        print(f"  cli/train_vae train ({SVHN_EPOCHS} epochs): -VLB "
+              + " -> ".join(f"{v:.2f}" for v in losses)
+              + f"; reconstruct {rec.shape} {rec.dtype}, generate {samples.shape} "
+              f"{samples.dtype} from the saved checkpoint")
+        if not (losses[-1] < losses[0] and rec.shape == (8, 3072) and samples.shape == (16, 3072)):
+            raise AssertionError(f"train_vae: -VLB {losses}, {rec.shape}, {samples.shape}")
+
+    # --- (4) the entropy study: card against CPU, then the default size.
+    tables = {}
+    for device in (DEVICE, "cpu"):
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            tables[device] = compare_entropy_approximations.main(
+                ["--nb_samples", str(ENTROPY_SAMPLES), "--device", device])
+    gap = max(abs(a - b) for key in tables["cpu"]
+              for (a, b) in zip(tables[DEVICE][key], tables["cpu"][key]))
+    print(f"  compare_entropy_approximations at {ENTROPY_SAMPLES} samples, card against CPU: "
+          f"largest gap {gap:.3e} bits [{ENTROPY_GAP_BITS}]")
+    if not gap <= ENTROPY_GAP_BITS:
+        raise AssertionError(f"entropy study on the card: {gap} bits from the CPU")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run_printing(compare_entropy_approximations.main, ["--device", DEVICE])
+    print(f"  compare_entropy_approximations at the default 200,000 samples on the card: "
+          f"{time.perf_counter() - t0:.2f} s (8 fits of 400 SGD steps)")
+
+    # --- (6) times.
+    print(f"  SVHN alternation (training_fct + training_eae_bw, batch {SVHN_BATCH}): "
+          f"{alternation_ms:.3f} ms (CUDA events, median of 9) = "
+          f"{SVHN_REFERENCE_BATCHES * alternation_ms / 1e3:.3f} s for one reference epoch of "
+          f"{SVHN_REFERENCE_BATCHES} batches; VAE step {vae_ms:.3f} ms [{card}]")
+    for (label, wall_ms, (kernel_ms, top)) in (("SVHN alternation", alternation_ms,
+                                                alternation_trace),
+                                               ("VAE step", vae_ms, vae_trace)):
+        if kernel_ms is None:
+            print(f"  {label}: the profiler's trace holds no device time (not measured)")
+            continue
+        print(f"  {label}: {kernel_ms:.3f} ms of kernels a call in a profiler trace of 10, "
+              f"device busy {100 * kernel_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms; top: "
+              + "; ".join(f"{name} {ms:.3f} ms x{n:g}" for (name, ms, n) in top))
+    launched = {name: n for (name, n) in gk.LAUNCHES.items() if n}
+    print(f"  GDN kernel launches on the SVHN side: {launched or 'none'} (dense models only)")
+    if launched:
+        raise AssertionError(f"the SVHN side launched GDN kernels: {launched}")
+    return {"svhn alternation ms": alternation_ms, "vae step ms": vae_ms}
+
+
+def _reference_variables(exp_dir, state):
+    """A reference-named variable dict (the TF checkpoint's names and
+    layouts) of a committed params artifact and the state's live density."""
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+    from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
+        load_params_artifact,
+    )
+
+    (params_np, bin_widths) = load_params_artifact(os.path.join(exp_dir, "params_trained.npz"))
+    variables = {f"{'encoder' if int(name[-1]) <= 3 else 'decoder'}/{name}": value
+                 for (name, value) in params_np.items()}
+    (ppi, nb_itvs) = (csts.NB_POINTS_PER_INTERVAL, int(state.density.nb_itvs_per_side))
+    center = ppi * csts.MAX_ITVS_PER_SIDE
+    live = state.density.parameters.cpu().numpy()[:, center - ppi * nb_itvs:
+                                                  center + ppi * nb_itvs + 1]
+    variables.update({"piecewise_linear_function/bin_widths": bin_widths,
+                      "piecewise_linear_function/parameters": live,
+                      "piecewise_linear_function/nb_intervals_per_side": numpy.asarray(nb_itvs),
+                      "decaying_lr/global_step": numpy.asarray(int(state.step))})
+    return variables
+
+
+def phase_tooling(card):
+    """The latent-analysis tooling on both trained architectures, from
+    full checkpoints written into a temporary results root. Returns each
+    path's launch counts and the (variant, rows) counts its kernels were
+    launched at."""
+    from autoencoder_based_image_compression_tpu_torch.cli import latent_analysis, visualize_model
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import synthetic_kodak
+    from autoencoder_based_image_compression_tpu_torch.eval import analysis
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint
+    from autoencoder_based_image_compression_tpu_torch.train.loop import encode_mini_batches
+    from autoencoder_based_image_compression_tpu_torch.utils.device import deterministic_cudnn
+    from autoencoder_based_image_compression_tpu_torch.utils.import_reference import (
+        import_reference_variables,
+    )
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    paths = {}
+    rows_seen = collections.Counter()
+    found = {name: importlib.util.find_spec(name) is not None for name in ("PIL", "matplotlib")}
+
+    def record(path, expected):
+        paths[path] = {name: n for (name, n) in gk.LAUNCHES.items() if n}
+        rows_seen.update(gk.LAUNCH_ROWS)
+        expect_launches(path, paths[path], expected)
+
+    images = synthetic_kodak(seed=14)[:TOOL_IMAGES]
+    with tempfile.TemporaryDirectory() as root:
+        path_images = os.path.join(root, "kodak.npy")
+        numpy.save(path_images, images[:, :, :, 0])
+        for (exp_dir, learned, bin_width_init) in ((LEARNED, True, 0.5), (FIXED, False, 1.0)):
+            tag = "learned" if learned else "fixed"
+            sites = 2 if learned else 3  # GDN (or IGDN) sites of one encode (or decode)
+            state = _trained_state(exp_dir, learned)
+            checkpoint.save_checkpoint(os.path.join(
+                root, experiment_suffix(bin_width_init, TRAIN_GAMMA, learned), "model_0"), state)
+            args = ["0", "--results_root", root, "--device", DEVICE] + (
+                ["--learn_bin_widths"] if learned else [])
+            head = [str(bin_width_init), str(TRAIN_GAMMA)]
+            out_dir = os.path.join(root, f"analysis_{tag}")
+
+            # (1) latent_analysis fit, end to end; its latents against the CPU's.
+            gk.reset_launch_counts()
+            _run_printing(latent_analysis.main, ["fit"] + head + args + [
+                "--path_to_kodak", path_images, "--out_dir", out_dir])
+            record(f"latent_analysis fit, {tag}", {"gdn_f32": sites})
+            scales = numpy.load(os.path.join(out_dir, "laplace_scales.npy"))
+            if not (numpy.all(numpy.isfinite(scales)) and numpy.all(scales > 0)):
+                raise AssertionError(f"latent_analysis fit, {tag}: scales {scales}")
+            y = encode_mini_batches(images, state.params, learned, TOOL_IMAGES)
+            y_cpu = encode_mini_batches(images, {k: v.cpu() for (k, v) in state.params.items()},
+                                        learned, TOOL_IMAGES)
+            torch.testing.assert_close(y, y_cpu, rtol=1e-5, atol=1e-4)
+            print(f"  latent_analysis fit, {tag} bin widths, {TOOL_IMAGES} images of {HEIGHT} x "
+                  f"{WIDTH}: Laplace scales in [{scales.min():.4f}, {scales.max():.4f}]; "
+                  f"latents within {float(numpy.abs(y - y_cpu).max()):.3e} of the CPU encode "
+                  "[rtol 1e-5, atol 1e-4]")
+
+            # (2) the activation probe at (2, 2) and (8, 8).
+            gk.reset_launch_counts()
+            probes = latent_analysis.activation_probes(state.params, learned, 0, 8.0)
+            record(f"activation probe, {tag}", {"igdn_f32": 2 * sites})
+            (first, second) = (probes["pos0"].astype(int), probes["pos1"].astype(int))
+            size = PROBE_PIXELS ** 0.5
+            interior = slice(16, int(size) - PROBE_SHIFT)
+            shifted = slice(16 + PROBE_SHIFT, int(size))
+            gap = numpy.abs(second[shifted, shifted] - first[interior, interior])
+            print(f"  activation probe, {tag}: {first.shape} uint8; the (8, 8) response equals "
+                  f"the (2, 2) one shifted by {PROBE_SHIFT} pixels in all but "
+                  f"{int((gap > 0).sum())} of {gap.size} interior pixels, largest gap "
+                  f"{int(gap.max())} level [1 level, 1e-3 of the pixels]")
+            if gap.max() > 1 or numpy.mean(gap > 0) > 1e-3:
+                raise AssertionError(f"activation probe, {tag}: not translation covariant")
+
+            # (3) mask_maps on the images' latents, against the CPU's decode.
+            map_mean = numpy.mean(y, axis=(0, 1, 2))
+            gk.reset_launch_counts()
+            masked = analysis.mask_maps(y, state.params, learned, 0, map_mean)
+            record(f"mask_maps, {tag}", {"igdn_f32": sites})
+            # The CPU decodes the first image only (a full-width decode on the host is slow).
+            masked_cpu = analysis.mask_maps(y[:1], {k: v.cpu() for (k, v) in
+                                                    state.params.items()}, learned, 0, map_mean)
+            gap = numpy.abs(masked[:1].astype(int) - masked_cpu)
+            print(f"  mask_maps, {tag}: {masked.shape} uint8; first image: {int((gap > 0).sum())} "
+                  f"of {gap.size} pixels off the CPU's decode, largest gap {int(gap.max())} "
+                  "level [1 level, 1e-3 of the pixels]")
+            if masked.shape != images.shape[:3] or gap.max() > 1 or numpy.mean(gap > 0) > 1e-3:
+                raise AssertionError(f"mask_maps, {tag}: {masked.shape}, gap {gap.max()}")
+
+            # (4) visualize_model's compute.
+            gk.reset_launch_counts()
+            arrays = visualize_model.model_arrays(state, images[:VIEW_IMAGES], learned, 4,
+                                                  torch.Generator(DEVICE).manual_seed(1))
+            record(f"visualize_model, {tag}", {"gdn_f32": sites})
+            if not (arrays["y"].shape == (VIEW_IMAGES, HEIGHT // 16, WIDTH // 16, 128)
+                    and numpy.all(numpy.isfinite(arrays["y_tilde"]))
+                    and numpy.all(numpy.isfinite(arrays["areas"]))):
+                raise AssertionError(f"visualize_model, {tag}: arrays not as expected")
+            print(f"  visualize_model's arrays, {tag}: y {arrays['y'].shape}, areas under the "
+                  f"live pdfs in [{arrays['areas'].min():.4f}, {arrays['areas'].max():.4f}] (the "
+                  "params artifact holds no density: a fresh table)")
+
+            # (5) the importer on a reference-named dict of the same model.
+            imported = import_reference_variables(_reference_variables(exp_dir, state))
+            latents = torch.from_numpy(numpy.random.default_rng(15).normal(
+                0, 2, size=(1, 16, 16, 128)).astype(numpy.float32)).to(DEVICE)
+            params = {k: v.to(DEVICE) for (k, v) in imported["params"].items()}
+            same = set(params) == set(state.params) and all(
+                torch.equal(params[k], state.params[k]) for k in params)
+            # cuDNN's default transposed conv sums with atomics: compare two
+            # decodes under its deterministic algorithms.
+            with torch.no_grad(), deterministic_cudnn():
+                direct = conv_eae.decode(state.params, latents, learned)
+                gk.reset_launch_counts()
+                decoded = conv_eae.decode(params, latents, learned)
+                record(f"import_reference decode, {tag}", {"igdn_f32": sites})
+            if imported["learn_bin_widths"] != learned or not same or not torch.equal(decoded,
+                                                                                      direct):
+                raise AssertionError(f"import_reference, {tag}: another model than the loaded one")
+            print(f"  import_reference_variables, {tag}: the imported parameters equal the "
+                  "loaded ones, and decode a 16 x 16 latent equal to them")
+
+            # (6) the image-writing command lines, where their imports are.
+            if found["PIL"]:
+                for command in ("activate", "mask"):
+                    _run_printing(latent_analysis.main, [command] + head + args + [
+                        "--path_to_kodak", path_images, "--out_dir", out_dir])
+                if found["matplotlib"]:
+                    _run_printing(visualize_model.main, head + args + [
+                        "--path_to_images", path_images, "--out_dir", out_dir])
+            written = sorted(name for name in os.listdir(out_dir) if name.endswith(".png"))
+            print(f"  image-writing command lines, {tag}: latent_analysis activate / mask "
+                  + ("driven" if found["PIL"] else "not driven (no PIL)")
+                  + ", visualize_model " + ("driven" if all(found.values()) else
+                                            "not driven (no PIL or matplotlib)")
+                  + f"; {len(written)} PNG files written [{card}]")
+    return (paths, rows_seen)
+
+
+def check_seen_rows(rows_seen, phase="phase 9"):
+    """Every kernel against its plain version at each row count ``phase``
     launched it at (untimed where phase 2 did not time that count)."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
 
@@ -1808,7 +2202,7 @@ def check_seen_rows(rows_seen):
         expected = plain(x, *params, inverse=inverse)
         torch.cuda.synchronize()
         (max_abs, _, tolerance, detail) = check_kernel(name, rows, got, expected, params[-1])
-        print(f"  {name:17s} rows {rows:6d}: {launches} launches in phase 9; "
+        print(f"  {name:17s} rows {rows:6d}: {launches} launches in {phase}; "
               f"max abs err {max_abs:.3e} [{tolerance}] {detail}"
               + ("; timed in phase 2" if (name, rows) in timed else ""))
 
@@ -1869,6 +2263,14 @@ def main():
     print("  the kernels against their plain versions at the distributed paths' row counts:")
     check_seen_rows(rows_seen)
 
+    print(f"phase 10: the SVHN side (dense EAE, VAE, entropy study) [{card}]")
+    phase_svhn(card)
+    print(f"phase 11: the latent-analysis tooling on both trained models [{card}]")
+    (launches, rows_seen) = phase_tooling(card)
+    path_launches.update(launches)
+    print("  the kernels against their plain versions at the tooling paths' row counts:")
+    check_seen_rows(rows_seen, "phase 11")
+
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
     # are per variant: a variant's shapes on one path share them).
@@ -1906,6 +2308,19 @@ def main():
     on_path += [(name, f"distributed training, {tag} bin widths", "T/4")
                 for name in ("gdn_f32", "igdn_f32") for tag in ("learned", "fixed")]
     on_path += [(name, "ladder over seven shards", "T/16") for name in ("gdn_f32", "igdn_f32")]
+    # The tooling (phase 11): the Laplace fit and the masking at the serving
+    # batch's rows, the activation probe and the importer's decode at a
+    # 16 x 16 latent's, visualize_model at two images'.
+    for tag in ("learned", "fixed"):
+        on_path += [("gdn_f32", f"latent_analysis fit, {tag}", "H/4"),
+                    ("igdn_f32", f"mask_maps, {tag}", "H/4"),
+                    ("gdn_f32", f"visualize_model, {tag}", "S/4"),
+                    ("gdn_f32", f"visualize_model, {tag}", "S/8")]
+        on_path += [("igdn_f32", f"{path}, {tag}", shape) for shape in ("A/4", "A/8")
+                    for path in ("activation probe", "import_reference decode")]
+    on_path += [("igdn_f32", "activation probe, fixed", "A/16"),
+                ("igdn_f32", "mask_maps, fixed", "H/16"),
+                ("gdn_f32", "visualize_model, fixed", "S/16")]
     kernels = []
     for (name, path, shape) in on_path:
         launches = path_launches[path][name]

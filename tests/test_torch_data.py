@@ -204,9 +204,11 @@ def test_create_datasets_cli(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="Expected 100 BSDS"):
         create_datasets.main(["bsds", "--source_dir", str(tmp_path / "none"), "--out_dir",
                               str(out)])
-    # The SVHN creator is not ported yet: the choice parses and says so.
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_datasets.main(["svhn", "--source_dir", source, "--nb_svhn_training", "10"])
+    # The SVHN creator runs, and says so when the folder holds no .mat file
+    # (tests/test_torch_svhn_data.py builds the matrices from .mat files).
+    with pytest.raises(RuntimeError, match="No SVHN .mat files"):
+        create_datasets.main(["svhn", "--source_dir", source, "--out_dir", str(out),
+                              "--nb_svhn_training", "10"])
     with pytest.raises(SystemExit):
         create_datasets.main(["cifar", "--source_dir", source])
 

@@ -69,6 +69,13 @@ def test_walk_sees_the_whole_port():
                  "parallel/sharding.py", "parallel/train_parallel.py", "parallel/spatial.py",
                  "dryrun.py"):
         assert f"{PORT}/{name}" in rel
+    # The SVHN side and the latent-analysis tooling.
+    for name in ("data/svhn.py", "models/dense_eae.py", "models/vae.py", "ops/gradcheck.py",
+                 "cli/train_svhn.py", "cli/overfit_svhn.py", "cli/reconstruct_svhn.py",
+                 "cli/compare_entropy_approximations.py", "cli/train_vae.py",
+                 "eval/analysis.py", "cli/latent_analysis.py", "cli/visualize_model.py",
+                 "utils/import_reference.py"):
+        assert f"{PORT}/{name}" in rel
     assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.
     assert "autoencoder_based_image_compression_tpu.models".split(".")[0] in FORBIDDEN
