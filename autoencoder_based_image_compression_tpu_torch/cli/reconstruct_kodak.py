@@ -7,6 +7,11 @@ anchors, then the Bjontegaard summaries. Hyperparameter ladder from
 ``reconstructing_eae_kodak.py:607-660``: gammas {10k..96k} for the
 one-model-per-rate family, multipliers {1..10} for the single-model
 sweeps, JPEG2000 qualities {24..40}, HEVC QPs {22..47}.
+
+:func:`compute` runs the study (models, curve families, anchors, caches,
+the Bjontegaard pickle) and returns what the figures show; :func:`draw`
+writes the figures with matplotlib. :func:`main` calls both, so a
+machine without matplotlib can still run :func:`compute`.
 """
 
 import argparse
@@ -48,6 +53,17 @@ HEVC_QPS = [22, 27, 32, 37, 42, 47]
 
 
 _EvalModel = collections.namedtuple("_EvalModel", ["params", "bin_widths", "step"])
+# What :func:`compute` returns: ``curves`` is a list of ``(mean rates,
+# mean PSNRs, label, style)``; ``families`` maps each EAE label to its
+# per-point, per-image arrays ``(rates, psnrs)`` or, for a multiplier
+# sweep, ``(rates, psnrs, nb_deads)``; ``summaries`` is what
+# ``dictionary_bjontegaard.pkl`` holds.
+Study = collections.namedtuple("Study", ["curves", "families", "summaries", "title",
+                                         "cache_dir"])
+# The dead-feature-maps-vs-rate figure of each multiplier sweep
+# (reference ``reconstructing_eae_kodak.py:245-287``).
+DEAD_MAP_FIGURES = {"EAE learned bin widths": "nb_dead_learn_bw.png",
+                    "EAE fixed bin widths": "nb_dead_fixed_bw.png"}
 
 
 def _load_state(results_root, bin_width_init, gamma, learn_bin_widths, idx_training,
@@ -96,7 +112,7 @@ def _step_key(step):
     return step if isinstance(step, str) else str(int(step))
 
 
-def main(args=None):
+def build_parser():
     parser = argparse.ArgumentParser(description="Kodak RD evaluation.")
     parser.add_argument("--idx_training", type=int_strictly_positive, default=1)
     parser.add_argument("--batch_size", type=int_strictly_positive, default=4)
@@ -135,7 +151,16 @@ def main(args=None):
     parser.add_argument("--write_ref", action="store_true",
                         help="save the reference luminance images as PNGs "
                              "(rotated back per list_rotation.pkl)")
-    args = parser.parse_args(args)
+    return parser
+
+
+def compute(args=None):
+    """Everything the study does but draw: loads the models, runs the
+    three EAE families and the anchors through their caches, prints the
+    study's lines, writes every cache file and
+    ``dictionary_bjontegaard.pkl``; returns a :class:`Study`. ``args``
+    is the command line's argument list."""
+    args = build_parser().parse_args(args)
     device = resolve_device(args.device)
 
     # Bare ``--hevc_qps`` / ``--jpeg2000_ladder`` (nargs="*" with zero
@@ -178,6 +203,7 @@ def main(args=None):
             save_image(os.path.join(ref_dir, f"reference_{i}.png"), luminance)
         print(f"reference images written to {ref_dir}")
     curves = []
+    families = {}
 
     # Family 1: one fixed-bw model per gamma, unit bin widths.
     params_per_gamma = {}
@@ -199,6 +225,7 @@ def main(args=None):
             args.cache_dir, experiment_id=vary_id)
         curves.append((numpy.mean(rates_v, axis=1), numpy.mean(psnrs_v, axis=1),
                        "EAE one model per gamma", "o-"))
+        families["EAE one model per gamma"] = (rates_v, psnrs_v)
 
     # Families 2+3: single model, multiplier sweep (learned / fixed bw).
     for (learn_bw, bw_init, label, style) in [
@@ -235,16 +262,7 @@ def main(args=None):
             idx_exception, experiment_id=fix_id)
         curves.append((numpy.mean(rates_f, axis=1), numpy.mean(psnrs_f, axis=1),
                        label, style))
-        # Dead-feature-maps-vs-rate figure for each sweep family
-        # (reference ``reconstructing_eae_kodak.py:245-287``).
-        from autoencoder_based_image_compression_tpu_torch.eval.visualization import (
-            plot_nb_dead_feature_maps)
-
-        os.makedirs(args.cache_dir, exist_ok=True)
-        plot_nb_dead_feature_maps(
-            rates_f, nb_deads_f,
-            os.path.join(args.cache_dir,
-                         f"nb_dead_{'learn' if learn_bw else 'fixed'}_bw.png"))
+        families[label] = (rates_f, psnrs_f, nb_deads_f)
 
     # Anchors. Both are cached like the EAE curve families (the
     # reference caches every family, ``reconstructing_eae_kodak.py:678-683``;
@@ -253,12 +271,12 @@ def main(args=None):
     # content hash of the image stack, so changing any of them recomputes.
     images_tag = hashlib.sha1(images.tobytes()).hexdigest()[:10]
 
-    def _cached_anchor(tag, compute):
+    def _cached_anchor(tag, run):
         path_rates = os.path.join(args.cache_dir, f"rates_{tag}.npy")
         path_psnrs = os.path.join(args.cache_dir, f"psnrs_{tag}.npy")
         if os.path.isfile(path_rates) and os.path.isfile(path_psnrs):
             return (numpy.load(path_rates), numpy.load(path_psnrs))
-        (rates, psnrs) = compute()
+        (rates, psnrs) = run()
         os.makedirs(args.cache_dir, exist_ok=True)
         numpy.save(path_rates, rates)
         numpy.save(path_psnrs, psnrs)
@@ -315,9 +333,6 @@ def main(args=None):
 
     os.makedirs(args.cache_dir, exist_ok=True)
     if curves:
-        rd_sweep.plot_rate_distortion(
-            curves, "Rate-distortion on " + ("BSDS" if args.use_bsds else "Kodak"),
-            os.path.join(args.cache_dir, "rate_distortion.png"))
         print(f"{len(curves)} RD curves written to {args.cache_dir}")
     else:
         print("No trained checkpoints found; nothing to evaluate.")
@@ -367,6 +382,28 @@ def main(args=None):
         with open(os.path.join(args.cache_dir, "dictionary_bjontegaard.pkl"),
                   "wb") as file:
             pickle.dump(summaries, file)
+    return Study(curves, families, summaries,
+                 "Rate-distortion on " + ("BSDS" if args.use_bsds else "Kodak"), args.cache_dir)
+
+
+def draw(study):
+    """Writes the figures of a :class:`Study` into its cache directory:
+    ``nb_dead_{learn,fixed}_bw.png`` and ``rate_distortion.png``."""
+    from autoencoder_based_image_compression_tpu_torch.eval.visualization import (
+        plot_nb_dead_feature_maps,
+    )
+
+    for (label, name) in DEAD_MAP_FIGURES.items():
+        if label in study.families:
+            (rates, _, nb_deads) = study.families[label]
+            plot_nb_dead_feature_maps(rates, nb_deads, os.path.join(study.cache_dir, name))
+    if study.curves:
+        rd_sweep.plot_rate_distortion(study.curves, study.title,
+                                      os.path.join(study.cache_dir, "rate_distortion.png"))
+
+
+def main(args=None):
+    draw(compute(args))
 
 
 if __name__ == "__main__":

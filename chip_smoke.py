@@ -60,7 +60,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    comes from the cache without a launch, the launches are 396 + 396 and
    the Bjontegaard savings against the committed JPEG2000 curve are
    within 0.5 points of the committed ones. ``cli/reconstruct_kodak`` is
-   driven too when PIL and matplotlib are there (printed either way);
+   driven too over the same cache where PIL is there: ``main`` with
+   matplotlib, else its ``compute`` half (printed either way);
 7b. the rest of serving and the bench: "bf16w" and "int8" through
    ``PipelinedCompressor`` (verified; both are expected to miss the gate,
    printed either way); ``fast_decode_fixed_bw`` at tails 0 and 3 against
@@ -76,7 +77,7 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 7c. the gate on two more image sets (``synthetic_kodak`` seeds 15 and 16)
    through the scan path and the pipeline: fails unless both serving
    "bf16w+" mixes hold -0.05 dB on every image at multipliers 1, 4 and 10;
-9. the distributed layer (run, as 10 and 11, before phase 8, which reports
+9. the distributed layer (run, as 10 to 12, before phase 8, which reports
    their kernels):
    (a) a world of one over NCCL: ``initialize``, ``make_global_mesh(1)``,
    ``global_state`` and 6 sharded ``train_step``s of both architectures at
@@ -118,6 +119,30 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    image-writing command lines only where PIL and matplotlib import
    (printed either way). Then every kernel against its plain version at
    each row count these paths launched it at;
+12. the campaign scripts at full width (128 maps, 256 x 256 crops at
+   batch 10, the seven ladder gammas and the learned-bin-width model,
+   the 24 images of ``synthetic_kodak(seed=14)``), in a temporary root,
+   cut in counts only (40 training, 10 validation and 20 extra crops, 1
+   epoch a part, 2 parts): (a) ``scripts/rd_campaign`` with
+   ``--ladder_vmap``: ``main`` where matplotlib imports, else its stages
+   in ``main``'s order with the study's compute half; fails unless all 8
+   models finish part 2 at a later step than part 1, the statistics
+   markers carry their exports' steps, the three families come out
+   finite, the learned model's coded rate does not rise with the
+   multiplier, a second call trains and launches nothing, and a third
+   call after one ``model_2.json`` is marked interrupted retrains that
+   model alone; seconds per stage; (b) ``scripts/stability_study``:
+   ``average_gamma_params`` over (a)'s parts equal bit for bit to the
+   float64 mean of the loaded checkpoints cast to float32, then the
+   evaluation of the committed ``results/eae_avg/`` models held against
+   ``results/eae/kodak_rd_stability/`` with phase 7's gates and the
+   "vs JPEG2000" savings within 0.5 points; (c) one more part through
+   ``scripts/resilient_campaign`` in fresh processes on the card (cool-down
+   0), resuming at part 2's step; (d) the port's side of
+   ``eval/reference_parity`` on both trained models (2 images of 64 x
+   64), the TF graph replaced by a CPU stand-in: ``max_abs_delta_db`` at
+   most 0.05. Then every kernel against its plain version at each row
+   count these paths launched it at;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 10. the result line ``{"ok": true, "device": {...}}``, last.
 
@@ -131,6 +156,7 @@ nothing of JAX.
 
 import collections
 import contextlib
+import glob
 import hashlib
 import importlib.util
 import io
@@ -138,6 +164,7 @@ import json
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,6 +218,17 @@ DEVICE = "cuda"
 # Laplace fit and the masking, 2 for visualize_model (the rows of a shard).
 (PROBE_PIXELS, TOOL_IMAGES, VIEW_IMAGES) = (256 * 256, 4, BATCH // 2)
 PROBE_SHIFT = 96  # pixels between the probe's positions (2, 2) and (8, 8)
+# The campaign scripts (phase 12) at full width, cut in counts only:
+# training, validation and extra crops, 1 epoch a part, 2 parts; the
+# ladder model whose last part a third call retrains; the averaged models
+# and the committed stability study; a part in a fresh process may take
+# this long; the parity harness's 2 images of 64 x 64.
+(CAMPAIGN_COUNTS, CAMPAIGN_PARTS, CAMPAIGN_RETRAINED) = ((40, 10, 20), 2, 72000.0)
+CAMPAIGN_EXTRA_ARGS = []  # e.g. ["--smoke"] for a rehearsal on the CPU
+AVG_ROOT = os.path.join(REPO, "results", "eae_avg")
+COMMITTED_STABILITY = os.path.join(RESULTS_ROOT, "kodak_rd_stability")
+RESILIENT_TIMEOUT_S = 600
+(STATS_BATCH, PARITY_IMAGES, PARITY_PIXELS) = (20, 2, 64)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256,
         # One of two shards of the serving batch: a height band or a data block.
@@ -201,12 +239,23 @@ ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64
         "T/4": TRAIN_BATCH * TRAIN_CROP ** 2 // 16, "T/8": TRAIN_BATCH * TRAIN_CROP ** 2 // 64,
         "T/16": TRAIN_BATCH * TRAIN_CROP ** 2 // 256,
         # The activation probe decodes one 16 x 16 latent (256 x 256 pixels).
-        "A/4": PROBE_PIXELS // 16, "A/8": PROBE_PIXELS // 64, "A/16": PROBE_PIXELS // 256}
+        "A/4": PROBE_PIXELS // 16, "A/8": PROBE_PIXELS // 64, "A/16": PROBE_PIXELS // 256,
+        # collect_stats encodes a batch of 20 crops; the parity harness 2 small images.
+        "E/4": STATS_BATCH * TRAIN_CROP ** 2 // 16, "E/8": STATS_BATCH * TRAIN_CROP ** 2 // 64,
+        "E/16": STATS_BATCH * TRAIN_CROP ** 2 // 256,
+        "P/4": PARITY_IMAGES * PARITY_PIXELS ** 2 // 16,
+        "P/8": PARITY_IMAGES * PARITY_PIXELS ** 2 // 64,
+        "P/16": PARITY_IMAGES * PARITY_PIXELS ** 2 // 256}
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
 SERVE_SHAPES = ("H/4", "H/8", "H/16")
 BENCH_SHAPES = ("B/4", "B/8")
 SHARD_SHAPES = ("S/4", "S/8", "S/16")
 PROBE_SHAPES = ("A/4", "A/8", "A/16")
+STATS_SHAPES = ("E/4", "E/8", "E/16")
+PARITY_SHAPES = ("P/4", "P/8", "P/16")
+# The kernels line's shapes of a training path and of an RD study.
+TRAINING_ENTRIES = {"gdn_f32": TRAIN_SHAPES, "igdn_f32": TRAIN_SHAPES}
+STUDY_ENTRIES = {"gdn_f32": SERVE_SHAPES, "igdn_f32": SERVE_SHAPES}
 # The distributed layer: sharded steps held against unsharded ones, the
 # height-sharded round trip's gate, and the two image sets of the gate's
 # wider probe.
@@ -233,10 +282,11 @@ TRAIN_SITES = {
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
     "gdn_f32": (torch.float32, False, False, (LEARNED, 1),
-                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + SHARD_SHAPES, 26),
+                SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + SHARD_SHAPES + STATS_SHAPES
+                + PARITY_SHAPES, 26),
     "igdn_f32": (torch.float32, True, False, (LEARNED, 6),
                  SERVE_SHAPES + TRAIN_SHAPES + BENCH_SHAPES + ("B/16",) + SHARD_SHAPES
-                 + PROBE_SHAPES, 26),
+                 + PROBE_SHAPES + PARITY_SHAPES, 26),
     "gdn_bf16": (torch.bfloat16, False, False, (LEARNED, 1), ("H/4", "H/8") + BENCH_SHAPES, 26),
     "igdn_bf16": (torch.bfloat16, True, False, (LEARNED, 6),
                   ("H/4", "H/8") + BENCH_SHAPES + ("S/4",), 26),
@@ -1133,14 +1183,15 @@ def phase_training(kernel_results, learn_bin_widths):
             lambda: fns["train_step"](state, eval_batch, step_noise))
 
 
-def _run_printing(main, args):
-    """``(main(args), what it printed)``, the printed lines shown indented."""
+def _run_printing(main, args, keep=None):
+    """``(main(args), what it printed)``, the printed lines shown indented
+    (only those that start with one of ``keep``, when it is given)."""
     captured = io.StringIO()
     with contextlib.redirect_stdout(captured):
         result = main(args)
     printed = captured.getvalue()
     for line in printed.splitlines():
-        if line.strip():
+        if line.strip() and (keep is None or line.lstrip().startswith(keep)):
             print(f"    | {line}")
     return (result, printed)
 
@@ -1325,6 +1376,80 @@ def phase_ladder():
             lambda: fns["train_step"](trained, eval_batch, noises[0]))
 
 
+def _campaign_launches(args, one_model=False):
+    """GDN / IGDN launches of the campaign's training stage: every part of
+    the eight models, or (``one_model``) of one fixed model's last part.
+    A part: the pre-fit (part 0 only) encodes once a batch, each epoch's
+    two evaluations encode and decode once, a step encodes twice (the
+    density and autoencoder phases) and decodes once; 3 sites a
+    fixed-bin-width model, 2 for the learned one."""
+    nb_batches = args.nb_training // args.batch_size
+    (gdn, igdn) = (0, 0)
+    models = ([(3, 1)] if one_model else
+              [(3, len(args.gammas_trained)), (2, 1)])
+    parts = [args.nb_parts - 1] if one_model else range(args.nb_parts)
+    for idx_part in parts:
+        for (sites, nb_models) in models:
+            gdn += nb_models * sites * ((nb_batches if idx_part == 0 else 0)
+                                        + 2 * args.nb_epochs + 2 * nb_batches * args.nb_epochs)
+            igdn += nb_models * sites * (2 * args.nb_epochs + nb_batches * args.nb_epochs)
+    return {"gdn_f32": gdn, "igdn_f32": igdn}
+
+
+def _study_launches(nb_images, families):
+    """GDN / IGDN launches of an RD study at batch 4: each point encodes
+    and decodes every batch once; ``families`` is ``[(sites, points)]``."""
+    count = (nb_images // BATCH) * sum(sites * points for (sites, points) in families)
+    return {"gdn_f32": count, "igdn_f32": count}
+
+
+def _part_steps(results_root, idx_model, experiments):
+    """``{suffix: step}`` of the finished ``model_<idx_model>`` of each
+    experiment; raises for a part that is missing or not finished."""
+    from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
+        checkpoint_part_complete,
+    )
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    steps = {}
+    for (bw_init, gamma, learn_bw) in experiments:
+        suffix = experiment_suffix(bw_init, gamma, learn_bw)
+        path = os.path.join(results_root, suffix, f"model_{idx_model}")
+        if not (os.path.isfile(path + ".npz") and checkpoint_part_complete(path)):
+            raise AssertionError(f"{path} is not a finished part")
+        with open(path + ".json") as file:
+            steps[suffix] = json.load(file)["step"]
+    return steps
+
+
+def _hold_committed(kind, label, got, committed_dir, name, worst):
+    """A curve array against the committed array of the same name (phase
+    7's gates); returns what was seen."""
+    expected = numpy.load(os.path.join(committed_dir, name))
+    if got.shape != expected.shape or not numpy.all(numpy.isfinite(got)):
+        raise AssertionError(f"{label} {kind}: shape {got.shape}, expected {expected.shape}")
+    if kind == "psnrs":
+        gap = float(numpy.abs(got - expected).max())
+        worst["psnr"] = max(worst["psnr"], gap)
+        if gap > RD_PSNR_DB:
+            raise AssertionError(f"{label}: an image's PSNR is {gap:.4f} dB off")
+        return f"PSNR gap {gap:.3e} dB (worst image)"
+    if kind == "rates":
+        mean_gap = float(numpy.abs(got.mean(axis=1) / expected.mean(axis=1) - 1.0).max())
+        image_gap = float(numpy.abs(got / expected - 1.0).max())
+        worst["mean_rate"] = max(worst["mean_rate"], mean_gap)
+        worst["image_rate"] = max(worst["image_rate"], image_gap)
+        if mean_gap > RD_MEAN_RATE or image_gap > RD_IMAGE_RATE:
+            raise AssertionError(f"{label}: rates off by {mean_gap:.3e} (a point's mean) and "
+                                 f"{image_gap:.3e} (an image)")
+        return f"rate gap {mean_gap:.3e} (a point's mean), {image_gap:.3e} (an image)"
+    equal = float(numpy.mean(got == expected))
+    worst["deads"] = min(worst["deads"], equal)
+    if equal < RD_DEADS_EQUAL:
+        raise AssertionError(f"{label}: only {equal:.4f} of the dead-map counts are equal")
+    return f"dead-map counts equal in {100 * equal:.2f} %"
+
+
 def phase_rd_study():
     """The rate-distortion study on the committed models, held against
     the committed curves. Returns the path's launch counts."""
@@ -1372,29 +1497,7 @@ def phase_rd_study():
 
     def hold(kind, label, got, path):
         """One curve array against the committed array of the same name."""
-        expected = numpy.load(os.path.join(COMMITTED_RD, os.path.basename(path)))
-        if got.shape != expected.shape or not numpy.all(numpy.isfinite(got)):
-            raise AssertionError(f"{label} {kind}: shape {got.shape}, expected {expected.shape}")
-        if kind == "psnrs":
-            gap = float(numpy.abs(got - expected).max())
-            worst["psnr"] = max(worst["psnr"], gap)
-            if gap > RD_PSNR_DB:
-                raise AssertionError(f"{label}: an image's PSNR is {gap:.4f} dB off")
-            return f"PSNR gap {gap:.3e} dB (worst image)"
-        if kind == "rates":
-            mean_gap = float(numpy.abs(got.mean(axis=1) / expected.mean(axis=1) - 1.0).max())
-            image_gap = float(numpy.abs(got / expected - 1.0).max())
-            worst["mean_rate"] = max(worst["mean_rate"], mean_gap)
-            worst["image_rate"] = max(worst["image_rate"], image_gap)
-            if mean_gap > RD_MEAN_RATE or image_gap > RD_IMAGE_RATE:
-                raise AssertionError(f"{label}: rates off by {mean_gap:.3e} (a point's mean) "
-                                     f"and {image_gap:.3e} (an image)")
-            return f"rate gap {mean_gap:.3e} (a point's mean), {image_gap:.3e} (an image)"
-        equal = float(numpy.mean(got == expected))
-        worst["deads"] = min(worst["deads"], equal)
-        if equal < RD_DEADS_EQUAL:
-            raise AssertionError(f"{label}: only {equal:.4f} of the dead-map counts are equal")
-        return f"dead-map counts equal in {100 * equal:.2f} %"
+        return _hold_committed(kind, label, got, COMMITTED_RD, os.path.basename(path), worst)
 
     gk.reset_launch_counts()
     with tempfile.TemporaryDirectory() as cache_dir, \
@@ -1450,11 +1553,10 @@ def phase_rd_study():
                       images, model.params, model.bin_widths, learn_bw, multipliers, BATCH,
                       cache_dir, map_mean, probabilities, idx_exception, experiment_id=fix_id))
         launches = dict(gk.LAUNCHES)
-        # 6 batches a point; 3 GDN + 3 IGDN a batch for a fixed-bin-width
-        # model, 2 + 2 for the learned one; 7 + 9 and 9 points.
-        nb_batches = images.shape[0] // BATCH
-        expected = nb_batches * (3 * (len(gammas) + len(multipliers)) + 2 * len(multipliers))
-        expect_launches("rd study", launches, {"gdn_f32": expected, "igdn_f32": expected})
+        # 3 GDN + 3 IGDN a batch for a fixed-bin-width model, 2 + 2 for the
+        # learned one; 7 + 9 and 9 points.
+        expect_launches("rd study", launches, _study_launches(
+            images.shape[0], [(3, len(gammas) + len(multipliers)), (2, len(multipliers))]))
 
         # Bjontegaard against the committed JPEG2000 curve (images x points).
         stem = ("jpeg2000_pillow_600-400-300-220-160-120-80-64-48-32-24-16-12-8_"
@@ -1479,18 +1581,20 @@ def phase_rd_study():
               f"image's rate {worst['image_rate']:.3e} [{RD_IMAGE_RATE}], dead-map counts equal "
               f"{100 * worst['deads']:.2f} % [{100 * RD_DEADS_EQUAL:.0f} %]")
 
-        # The CLI itself, over the same cache directory: host plotting and
-        # anchor packages may be absent from a machine that has the card.
+        # The CLI itself, over the same cache directory: its main where
+        # matplotlib draws the figures, else its compute half; the anchor
+        # module needs PIL.
         found = {name: importlib.util.find_spec(name) is not None
                  for name in ("PIL", "matplotlib")}
         print(f"  plotting and anchor packages: {found}")
-        if all(found.values()):
+        if found["PIL"]:
             for kind in ("rates", "psnrs"):  # the committed anchor, as the CLI caches it
                 numpy.save(os.path.join(cache_dir, f"{kind}_{stem}.npy"),
                            numpy.load(os.path.join(COMMITTED_RD, f"{kind}_{stem}.npy")))
             path_images = os.path.join(cache_dir, "kodak.npy")
             numpy.save(path_images, images)
-            (_, printed) = _run_printing(reconstruct_kodak.main, [
+            entry = reconstruct_kodak.main if found["matplotlib"] else reconstruct_kodak.compute
+            (_, printed) = _run_printing(entry, [
                 "--code_lossless", "--path_to_kodak", path_images, "--results_root",
                 RESULTS_ROOT, "--cache_dir", cache_dir, "--jpeg2000_backend", "pillow",
                 "--device", DEVICE])
@@ -1505,12 +1609,15 @@ def phase_rd_study():
                 if not abs(summary["delta_pct"] - committed[key]["delta_pct"]) \
                         <= RD_BJONTEGAARD_POINTS:
                     raise AssertionError(f"reconstruct_kodak, {key}: {summary['delta_pct']}")
-            for name in ("rate_distortion.png", "nb_dead_learn_bw.png", "nb_dead_fixed_bw.png"):
+            figures = ("rate_distortion.png", "nb_dead_learn_bw.png", "nb_dead_fixed_bw.png")
+            for name in figures if found["matplotlib"] else ():
                 if not os.path.getsize(os.path.join(cache_dir, name)) > 0:
                     raise AssertionError(f"reconstruct_kodak drew no {name}")
+            print(f"  cli/reconstruct_kodak.{entry.__name__} over the sweeps' cache: no launch, "
+                  "the same Bjontegaard keys and savings"
+                  + ("" if found["matplotlib"] else "; its figures not drawn (no matplotlib)"))
         else:
-            print("  cli/reconstruct_kodak not driven: it draws with matplotlib and codes "
-                  "the JPEG2000 anchor with PIL")
+            print("  cli/reconstruct_kodak not driven: it codes the JPEG2000 anchor with PIL")
     return {"rd study": launches}
 
 
@@ -2187,6 +2294,359 @@ def phase_tooling(card):
     return (paths, rows_seen)
 
 
+def phase_campaign(card):
+    """The campaign scripts at full width: (a) ``rd_campaign`` in a
+    temporary root, called three times; (b) ``stability_study``'s average
+    on (a)'s parts and its evaluation on the committed averaged models;
+    (c) one more part through ``resilient_campaign``, in fresh processes;
+    (d) the port's side of ``reference_parity``. Returns each in-process
+    path's launch counts, the ``(variant, shape, path)`` entries of the
+    kernels line, and the (variant, rows) counts the kernels were
+    launched at."""
+    from autoencoder_based_image_compression_tpu_torch.cli import reconstruct_kodak
+    from autoencoder_based_image_compression_tpu_torch.codecs import jpeg2000
+    from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
+        synthetic_kodak,
+        synthetic_luminance_stack,
+    )
+    from autoencoder_based_image_compression_tpu_torch.eval import reference_parity
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.ops.quantization import quantize_per_map
+    from autoencoder_based_image_compression_tpu_torch.scripts import (
+        rd_campaign,
+        resilient_campaign,
+        stability_study,
+    )
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint
+    from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
+    from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    paths = {}
+    rows_seen = collections.Counter()
+    on_path = []
+    found = {name: importlib.util.find_spec(name) is not None for name in ("PIL", "matplotlib")}
+    keep = ("[campaign]", "[resilient]", "Bjontegaard", "gamma ", "stability comparison",
+            "Epoch wall-clock", "JPEG2000 anchor")
+
+    def record(path, expected, shapes):
+        """Reads the path's launches and holds them to ``expected``; the
+        kernels line gets each launched variant at its ``shapes[variant]``."""
+        expected = {name: n for (name, n) in expected.items() if n}
+        paths[path] = {name: n for (name, n) in gk.LAUNCHES.items() if n}
+        rows_seen.update(gk.LAUNCH_ROWS)
+        expect_launches(path, paths[path], expected)
+        on_path.extend((name, path, shape) for name in expected for shape in shapes[name])
+
+    def quiet(fn, *args):
+        """``fn(*args)``, printing only the lines a reader of this run needs."""
+        return _run_printing(lambda _: fn(*args), None, keep)[0]
+
+    with tempfile.TemporaryDirectory() as root:
+        results_root = os.path.join(root, "results")
+        argv = ["--data_root", os.path.join(root, "data"), "--results_root", results_root,
+                "--out", os.path.join(root, "rd"), "--nb_training", str(CAMPAIGN_COUNTS[0]),
+                "--nb_validation", str(CAMPAIGN_COUNTS[1]), "--nb_extra",
+                str(CAMPAIGN_COUNTS[2]), "--nb_epochs", "1", "--nb_parts",
+                str(CAMPAIGN_PARTS), "--ladder_vmap", "--jpeg2000_backend", "pillow",
+                "--device", DEVICE] + CAMPAIGN_EXTRA_ARGS
+        args = rd_campaign.parse_args(argv)
+        experiments = [rd_campaign.LEARNED] + [(1.0, g, False) for g in args.gammas_trained]
+        nb_kodak = args.kodak_shape[0]
+        # The JPEG2000 anchor of these images is committed (phase 7's): the
+        # study reads it from its cache instead of coding 24 images on the host.
+        os.makedirs(args.out)
+        stem = ("jpeg2000_pillow_600-400-300-220-160-120-80-64-48-32-24-16-12-8_"
+                + RD_IMAGES_TAG)
+        for kind in ("rates", "psnrs"):
+            shutil.copy(os.path.join(COMMITTED_RD, f"{kind}_{stem}.npy"), args.out)
+        route = "main" if all(found.values()) else "stages"
+        print(f"  (a) rd_campaign, {len(experiments)} models at 128 maps, "
+              f"{args.nb_training} crops of {args.crop} x {args.crop} at batch "
+              f"{args.batch_size}, {args.nb_parts} parts of {args.nb_epochs} epoch, "
+              f"{nb_kodak} images of {args.kodak_shape[1]} x {args.kodak_shape[2]}; route: "
+              + ("main(), as a user calls it" if route == "main" else
+                 "the stages in main()'s order (no matplotlib to draw the figures)"))
+
+        def campaign(label, training_expected, statistics_expected, evaluation_expected):
+            """One call of the campaign; returns ``(part seconds, study)``."""
+            stage_s = {}
+            if route == "main":
+                gk.reset_launch_counts()
+                t0 = time.perf_counter()
+                (_, printed) = _run_printing(rd_campaign.main, argv, keep)
+                stage_s["main"] = time.perf_counter() - t0
+                expected = collections.Counter(training_expected)
+                expected.update(statistics_expected)
+                expected.update(evaluation_expected)
+                record(label, expected, {"gdn_f32": TRAIN_SHAPES + STATS_SHAPES + SERVE_SHAPES,
+                                         "igdn_f32": TRAIN_SHAPES + SERVE_SHAPES})
+                # The parts' seconds as the campaign printed them (a ladder
+                # model trained alone counts as its ladder part).
+                part_s = {f"{'learned-bw' if name.startswith('learning') else 'ladder'} part "
+                          f"{idx}": float(s) for (name, idx, s) in re.findall(
+                              r"\[campaign\] (\S+): part (\d+)[^\n]* trained in ([0-9.]+) s",
+                              printed)}
+                gk.reset_launch_counts()
+                study = quiet(rd_campaign.evaluate, args, rd_campaign.build_data(
+                    args.data_root, args.nb_training, args.nb_validation, args.nb_extra,
+                    args.crop, args.kodak_shape), False)
+                if any(gk.LAUNCHES.values()):
+                    raise AssertionError(f"{label}: the study was not read from the cache")
+            else:
+                t0 = time.perf_counter()
+                data = rd_campaign.build_data(args.data_root, args.nb_training,
+                                              args.nb_validation, args.nb_extra, args.crop,
+                                              args.kodak_shape)
+                stage_s["data"] = time.perf_counter() - t0
+                gk.reset_launch_counts()
+                t0 = time.perf_counter()
+                part_s = quiet(rd_campaign.train_parts, args, data)
+                stage_s["training"] = time.perf_counter() - t0
+                record(f"{label}: training", training_expected, TRAINING_ENTRIES)
+                gk.reset_launch_counts()
+                t0 = time.perf_counter()
+                for experiment in (rd_campaign.LEARNED, (1.0, 10000.0, False)):
+                    quiet(rd_campaign.collect_stats, args.results_root, data, *experiment,
+                          args.nb_parts, args.device)
+                stage_s["statistics"] = time.perf_counter() - t0
+                record(f"{label}: statistics", statistics_expected, {"gdn_f32": STATS_SHAPES})
+                gk.reset_launch_counts()
+                t0 = time.perf_counter()
+                rd_campaign.export_params(args.results_root, args.gammas_trained,
+                                          args.nb_parts, args.device)
+                stage_s["exports"] = time.perf_counter() - t0
+                record(f"{label}: exports", {}, {})
+                gk.reset_launch_counts()
+                t0 = time.perf_counter()
+                study = quiet(rd_campaign.evaluate, args, data, False)
+                stage_s["evaluation"] = time.perf_counter() - t0
+                record(f"{label}: rd evaluation", evaluation_expected, STUDY_ENTRIES)
+            print(f"  {label}: seconds per stage "
+                  + ", ".join(f"{stage} {s:.2f}" for (stage, s) in stage_s.items())
+                  + "; parts trained: " + (", ".join(f"{part} {s:.2f} s" for (part, s)
+                                                      in part_s.items()) or "none"))
+            return (part_s, study)
+
+        # First call: everything is trained, collected, exported and evaluated.
+        full = _study_launches(nb_kodak, [(3, len(args.gammas_trained)),
+                                          (3, len(reconstruct_kodak.MULTIPLIERS)),
+                                          (2, len(reconstruct_kodak.MULTIPLIERS))])
+        extra_batches = args.nb_extra // 20  # collect_stats' batch
+        (part_s, study) = campaign("campaign", _campaign_launches(args),
+                                   {"gdn_f32": 5 * extra_batches}, full)
+        steps = [_part_steps(results_root, idx, experiments)
+                 for idx in range(1, args.nb_parts + 1)]
+        if not all(steps[-1][s] > steps[-2][s] for s in steps[-1]):
+            raise AssertionError(f"model_{args.nb_parts} steps {steps[-1]} not above "
+                                 f"model_{args.nb_parts - 1}'s {steps[-2]}")
+        for experiment in (rd_campaign.LEARNED, (1.0, 10000.0, False)):
+            exp_dir = os.path.join(results_root, experiment_suffix(*experiment))
+            with open(os.path.join(exp_dir, "statistics", "stats_model_idx.json")) as file:
+                marker = json.load(file)
+            export = checkpoint.params_artifact_step(os.path.join(exp_dir,
+                                                                  "params_trained.npz"))
+            if marker != {"idx_model": args.nb_parts, "step": export}:
+                raise AssertionError(f"{exp_dir}: marker {marker}, export at step {export}")
+        families = study.families
+        if set(families) != {"EAE one model per gamma", "EAE learned bin widths",
+                             "EAE fixed bin widths"} or not all(
+                                 numpy.all(numpy.isfinite(a)) for f in families.values()
+                                 for a in f[:2]):
+            raise AssertionError(f"the campaign's study: families {sorted(families)}")
+        learned_rates = families["EAE learned bin widths"][0].mean(axis=1)
+        if not numpy.all(numpy.diff(learned_rates) <= 0.0):
+            raise AssertionError(f"the learned model's coded rate rises with the multiplier: "
+                                 f"{learned_rates}")
+        print(f"  campaign: model_{args.nb_parts} of all {len(experiments)} models finished, "
+              f"steps {sorted(set(steps[-2].values()))} -> {sorted(set(steps[-1].values()))}; "
+              "statistics markers at their exports' steps; learned-bw coded rate "
+              + " >= ".join(f"{r:.4f}" for r in learned_rates) + " bpp over x"
+              + ", x".join(f"{m:g}" for m in reconstruct_kodak.MULTIPLIERS)
+              + "; PSNR ranges " + "; ".join(
+                  f"{label} {f[1].mean(axis=1).min():.2f}-{f[1].mean(axis=1).max():.2f} dB"
+                  for (label, f) in families.items())
+              + "; Bjontegaard " + ", ".join(
+                  f"{key} {value['delta_pct']:+.2f} %" for (key, value) in
+                  study.summaries.items()))
+
+        # Second call: nothing is trained, collected or coded again.
+        none = {"gdn_f32": 0, "igdn_f32": 0}
+        mtimes = {path: os.path.getmtime(path) for path in glob.glob(
+            os.path.join(results_root, "*", "*", "model_*"))}
+        (again_s, again) = campaign("campaign again", none, {}, none)
+        if again_s or any(os.path.getmtime(path) != mtime for (path, mtime) in mtimes.items()):
+            raise AssertionError(f"the second call trained {sorted(again_s)}")
+        if not all(numpy.array_equal(a, b) for label in families
+                   for (a, b) in zip(families[label], again.families[label])):
+            raise AssertionError("the second call's curves differ from the first's")
+        # Third call: one ladder model's last part rewritten as interrupted.
+        retrained = os.path.join(results_root, experiment_suffix(1.0, CAMPAIGN_RETRAINED,
+                                                                 False),
+                                 f"model_{args.nb_parts}")
+        with open(retrained + ".json") as file:
+            meta = json.load(file)
+        meta["part_complete"] = False
+        with open(retrained + ".json", "w") as file:
+            json.dump(meta, file)
+        mtimes = {path: os.path.getmtime(path) for path in glob.glob(
+            os.path.join(results_root, "*", "*", "model_*"))}
+        (third_s, _) = campaign("campaign retraining one model",
+                                _campaign_launches(args, one_model=True), {}, none)
+        moved = sorted(path for (path, mtime) in mtimes.items()
+                       if not os.path.isfile(path) or os.path.getmtime(path) != mtime)
+        if moved != [retrained + ".json", retrained + ".npz"] or list(third_s) != [
+                f"ladder part {args.nb_parts - 1}"]:
+            raise AssertionError(f"the third call retrained {third_s}, rewrote {moved}")
+        _part_steps(results_root, args.nb_parts, experiments)
+        print(f"  campaign, third call: only {os.path.relpath(retrained, results_root)} "
+              "retrained (the ladder's mixed-resume fallback), the curves from the caches")
+
+        # (b) stability_study: the average over (a)'s parts, bit for bit.
+        print("  (b) stability_study")
+        template = init_train_state(torch.Generator().manual_seed(0), 1.0, False,
+                                    device=DEVICE)
+        t0 = time.perf_counter()
+        for gamma in stability_study.GAMMAS:
+            exp_dir = os.path.join(results_root, experiment_suffix(1.0, gamma, False))
+            (mean, _, last_step, used) = stability_study.average_gamma_params(
+                exp_dir, gamma, args.nb_parts, DEVICE)
+            loaded = [checkpoint.params_to_jax(checkpoint.load_checkpoint(
+                os.path.join(exp_dir, f"model_{idx}"), template).params) for idx in used]
+            for (name, value) in mean.items():
+                expected = (sum(p[name].astype(numpy.float64) for p in loaded)
+                            / len(loaded)).astype(numpy.float32)
+                if value.dtype != numpy.float32 or value.tobytes() != expected.tobytes():
+                    raise AssertionError(f"stability average, gamma {gamma}: {name} differs")
+            if used != list(range(1, args.nb_parts + 1)) or last_step != steps[-1][
+                    experiment_suffix(1.0, gamma, False)]:
+                raise AssertionError(f"stability average, gamma {gamma}: parts {used}")
+        average_s = time.perf_counter() - t0
+        print(f"    average_gamma_params over parts 1-{args.nb_parts} of the seven gammas "
+              f"equal, bit for bit, to the float32 cast of the float64 mean of the loaded "
+              f"checkpoints ({average_s:.2f} s)")
+        images = synthetic_kodak(seed=14)[..., 0]
+        if hashlib.sha1(images.tobytes()).hexdigest()[:10] != RD_IMAGES_TAG:
+            raise AssertionError("the Kodak-shaped set is not the committed studies' set")
+        path_kodak = os.path.join(root, "kodak.npy")
+        numpy.save(path_kodak, images)
+        stability_args = stability_study.build_parser().parse_args([
+            "--k", "3", "--avg_root", AVG_ROOT, "--study_dir", COMMITTED_RD, "--out",
+            os.path.join(root, "stability"), "--path_to_kodak", path_kodak, "--hevc_encoder",
+            "", "--device", DEVICE])
+        stability_study.copy_anchor_caches(stability_args.study_dir, stability_args.out)
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        # The anchor is the committed study's Pillow curve, whatever codecs
+        # this machine has.
+        with mock.patch.object(jpeg2000, "imagemagick_available", lambda: False):
+            stable = quiet(stability_study.evaluate, stability_args, found["matplotlib"])
+        evaluation_s = time.perf_counter() - t0
+        record("stability evaluation", _study_launches(
+            images.shape[0], [(3, len(stability_study.GAMMAS)),
+                              (3, len(reconstruct_kodak.MULTIPLIERS))]), STUDY_ENTRIES)
+        with open(os.path.join(COMMITTED_STABILITY, "stability_comparison.json")) as file:
+            used_committed = json.load(file)["averaged_parts"]
+        comparison = quiet(stability_study.write_comparison, 3, used_committed,
+                           stability_args.study_dir, stability_args.out)
+        worst = {"psnr": 0.0, "mean_rate": 0.0, "image_rate": 0.0, "deads": 1.0}
+        said = []
+        for name in sorted(os.listdir(stability_args.out)):
+            if not name.endswith(".npy") or "_hevc_" in name or "_jpeg2000_" in name:
+                continue
+            kind = name.split("_", 1)[0]
+            said.append(f"{name[:-4]}: " + _hold_committed(
+                kind, name, numpy.load(os.path.join(stability_args.out, name)),
+                COMMITTED_STABILITY, name, worst))
+        if len(said) != 2 + 3:
+            raise AssertionError(f"the stability study wrote {said}")
+        with open(os.path.join(COMMITTED_STABILITY, "dictionary_bjontegaard.pkl"), "rb") as file:
+            committed = pickle.load(file)
+        with open(os.path.join(COMMITTED_RD, "dictionary_bjontegaard.pkl"), "rb") as file:
+            committed_last = pickle.load(file)
+        key_gamma = "EAE one model per gamma vs JPEG2000"
+        pairs = [(f"pickle, {key}", stable.summaries[key]["delta_pct"],
+                  committed[key]["delta_pct"]) for key in (key_gamma,
+                                                           "EAE fixed bin widths vs JPEG2000")]
+        pairs += [("comparison, k_checkpoint_average",
+                   comparison["k_checkpoint_average"][key_gamma],
+                   committed[key_gamma]["delta_pct"]),
+                  ("comparison, last_checkpoint", comparison["last_checkpoint"][key_gamma],
+                   committed_last[key_gamma]["delta_pct"])]
+        if set(stable.summaries) != {key_gamma, "EAE fixed bin widths vs JPEG2000"}:
+            raise AssertionError(f"the stability pickle holds {sorted(stable.summaries)}")
+        for line in said:
+            print(f"    {line}")
+        for (what, got, was) in pairs:
+            print(f"    {what}: {got:+.4f} % (committed {was:+.4f} %)")
+            if not abs(got - was) <= RD_BJONTEGAARD_POINTS:
+                raise AssertionError(f"stability {what}: {got} against {was}")
+        print(f"    evaluation of the committed averaged models {evaluation_s:.2f} s; largest "
+              f"gaps: PSNR {worst['psnr']:.3e} dB [{RD_PSNR_DB}], a point's mean rate "
+              f"{worst['mean_rate']:.3e} [{RD_MEAN_RATE}], an image's rate "
+              f"{worst['image_rate']:.3e} [{RD_IMAGE_RATE}], dead-map counts equal "
+              f"{100 * worst['deads']:.2f} % [{100 * RD_DEADS_EQUAL:.0f} %]; the HEVC entries "
+              "left out (no HM binary in the repository)")
+
+        # (c) resilient_campaign: one more part, each in a fresh process.
+        common = resilient_campaign.common_args(args.nb_epochs, args.batch_size,
+                                                args.data_root, results_root, DEVICE)
+        t0 = time.perf_counter()
+        fresh_s = resilient_campaign.run_parts(args.nb_parts, args.nb_parts, common,
+                                               results_root, RESILIENT_TIMEOUT_S, cooldown_s=0)
+        resilient_s = time.perf_counter() - t0
+        resumed = _part_steps(results_root, args.nb_parts + 1, experiments)
+        nb_steps = args.nb_epochs * (args.nb_training // args.batch_size)
+        if any(resumed[s] != steps[-1][s] + nb_steps for s in resumed) or sorted(fresh_s) != [
+                f"ladder part {args.nb_parts}", f"learned-bw part {args.nb_parts}"]:
+            raise AssertionError(f"resilient part: steps {resumed}, parts {fresh_s}")
+        print(f"  (c) resilient_campaign, part {args.nb_parts} in fresh processes "
+              f"({resilient_s:.2f} s in all): " + ", ".join(
+                  f"{part} {s:.2f} s (in-process part {args.nb_parts - 1}: "
+                  f"{part_s[part.rsplit(' ', 1)[0] + f' {args.nb_parts - 1}']:.2f} s)"
+                  for (part, s) in fresh_s.items())
+              + f"; model_{args.nb_parts + 1} of the {len(resumed)} models finished at step "
+              f"{sorted(set(resumed.values()))}, {nb_steps} steps after model_{args.nb_parts}")
+
+    # (d) reference_parity: the port's side on the card; the TF graph's
+    # place is taken by the same fp32 round trip on the CPU.
+    tensorflow = importlib.util.find_spec("tensorflow") is not None
+    print(f"  (d) reference_parity: reference_available() {reference_parity.reference_available()}"
+          f", tensorflow importable {tensorflow}; the TF graph is replaced by a stand-in (the "
+          "port's fp32 round trip on the CPU); no number from the reference is claimed")
+
+    def cpu_roundtrip(params_numpy, bin_widths, images_f32, learn_bin_widths):
+        params = checkpoint.params_from_jax(params_numpy)
+        with torch.no_grad():
+            y = conv_eae.encode(params, torch.from_numpy(images_f32), learn_bin_widths)
+            rec = conv_eae.decode(params, quantize_per_map(y, bin_widths), learn_bin_widths)
+        return (y.numpy(), rec.numpy())
+
+    parity_images = synthetic_luminance_stack(PARITY_IMAGES, PARITY_PIXELS, PARITY_PIXELS,
+                                              seed=21)[..., 0]
+    for (exp_dir, learned) in ((LEARNED, True), (FIXED, False)):
+        tag = "learned" if learned else "fixed"
+        sites = 2 if learned else 3
+        (params_np, bin_widths) = checkpoint.load_params_artifact(
+            os.path.join(exp_dir, "params_trained.npz"))
+        with mock.patch.object(reference_parity, "reference_roundtrip_tf", cpu_roundtrip):
+            gk.reset_launch_counts()
+            report = reference_parity.measure_psnr_parity(
+                checkpoint.params_from_jax(params_np), bin_widths, parity_images, learned,
+                batch_size=PARITY_IMAGES, device=DEVICE)
+            record(f"reference parity, {tag}", {"gdn_f32": sites, "igdn_f32": sites},
+                   {"gdn_f32": PARITY_SHAPES[:sites], "igdn_f32": PARITY_SHAPES[:sites]})
+        print(f"    {tag} bin widths, {PARITY_IMAGES} images of {PARITY_PIXELS} x "
+              f"{PARITY_PIXELS}: PSNRs on the card " + ", ".join(
+                  f"{p:.4f}" for p in report["psnrs_ours"]) + " dB, through the stand-in "
+              + ", ".join(f"{p:.4f}" for p in report["psnrs_reference"])
+              + f" dB; max_abs_delta_db {report['max_abs_delta_db']:.3e} [0.05], "
+              f"cross PSNR {report['cross_psnr_db']:.2f} dB [{card}]")
+        if not report["max_abs_delta_db"] <= 0.05:
+            raise AssertionError(f"reference parity, {tag}: {report}")
+    return (paths, on_path, rows_seen)
+
+
 def check_seen_rows(rows_seen, phase="phase 9"):
     """Every kernel against its plain version at each row count ``phase``
     launched it at (untimed where phase 2 did not time that count)."""
@@ -2270,6 +2730,14 @@ def main():
     path_launches.update(launches)
     print("  the kernels against their plain versions at the tooling paths' row counts:")
     check_seen_rows(rows_seen, "phase 11")
+    print(f"phase 12: the campaign scripts at full width (rd_campaign, stability_study, "
+          f"resilient_campaign, reference_parity) [{card}]")
+    t0 = time.perf_counter()
+    (launches, campaign_entries, rows_seen) = phase_campaign(card)
+    path_launches.update(launches)
+    print("  the kernels against their plain versions at the campaign paths' row counts:")
+    check_seen_rows(rows_seen, "phase 12")
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
@@ -2321,6 +2789,10 @@ def main():
     on_path += [("igdn_f32", "activation probe, fixed", "A/16"),
                 ("igdn_f32", "mask_maps, fixed", "H/16"),
                 ("gdn_f32", "visualize_model, fixed", "S/16")]
+    # The campaign scripts (phase 12): their training at a step's rows,
+    # collect_stats at a batch of 20 crops, the RD studies at the serving
+    # batch's, the parity harness at two 64 x 64 images'.
+    on_path += campaign_entries
     kernels = []
     for (name, path, shape) in on_path:
         launches = path_launches[path][name]

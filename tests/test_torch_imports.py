@@ -76,7 +76,25 @@ def test_walk_sees_the_whole_port():
                  "eval/analysis.py", "cli/latent_analysis.py", "cli/visualize_model.py",
                  "utils/import_reference.py"):
         assert f"{PORT}/{name}" in rel
+    # The campaign scripts and the reference-parity harness.
+    for name in ("scripts/__init__.py", "scripts/rd_campaign.py", "scripts/stability_study.py",
+                 "scripts/resilient_campaign.py", "eval/reference_parity.py"):
+        assert f"{PORT}/{name}" in rel
     assert "optax" in FORBIDDEN
     # The walk flags the reference package, and only it, by its top name.
     assert "autoencoder_based_image_compression_tpu.models".split(".")[0] in FORBIDDEN
     assert PORT not in FORBIDDEN
+
+
+def test_reference_parity_imports_tensorflow_only_inside_its_functions():
+    path = os.path.join(REPO, PORT, "eval", "reference_parity.py")
+    with open(path) as file:
+        tree = ast.parse(file.read(), filename=path)
+    top = [node for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))]
+    assert top and not any(name.split(".")[0] == "tensorflow" for node in top
+                           for name in ([alias.name for alias in node.names]
+                                        if isinstance(node, ast.Import) else [node.module]))
+    inside = {name for function in tree.body if isinstance(function, ast.FunctionDef)
+              for node in ast.walk(function) if isinstance(node, ast.Import)
+              for name in (alias.name for alias in node.names)}
+    assert "tensorflow" in inside

@@ -169,3 +169,34 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(tmp_path):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         reconstruct_kodak.main(["--path_to_kodak", str(tmp_path / "none.npy")])
+
+
+def test_compute_alone_writes_every_cache_file_and_no_figure(study, monkeypatch):
+    """The compute half writes what ``main`` writes but the figures, and
+    returns the curves and summaries the figures and the pickle are made
+    from; it never imports matplotlib. ``main`` draws the three figures
+    from that result (``test_same_curve_files_as_the_jax_cli``)."""
+    import sys
+
+    (port, _) = study
+    images_path = os.path.join(os.path.dirname(port), "kodak.npy")
+    cache_dir = os.path.join(os.path.dirname(port), "compute_only")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # importing it raises
+    result = reconstruct_kodak.compute(
+        ["--code_lossless", "--path_to_kodak", images_path, "--results_root", RESULTS,
+         "--cache_dir", cache_dir, "--batch_size", "2", "--device", "cpu",
+         "--jpeg2000_backend", "pillow", "--jpeg2000_ladder", *LADDER])
+    names = sorted(os.listdir(cache_dir))
+    assert names == sorted(name for name in os.listdir(port) if not name.endswith(".png"))
+    assert "dictionary_bjontegaard.pkl" in names
+    with open(os.path.join(cache_dir, "dictionary_bjontegaard.pkl"), "rb") as file:
+        assert set(pickle.load(file)) == set(result.summaries)
+    assert [label for (_, _, label, _) in result.curves] == [
+        "EAE one model per gamma", "EAE learned bin widths", "EAE fixed bin widths", "JPEG2000"]
+    assert set(result.families) == {label for (_, _, label, _) in result.curves[:3]}
+    assert [len(result.families[label]) for (_, _, label, _) in result.curves[:3]] == [2, 3, 3]
+    assert result.cache_dir == cache_dir and result.title == "Rate-distortion on Kodak"
+    for (name, array) in (("psnrs", result.families["EAE learned bin widths"][1]),
+                          ("deads", result.families["EAE learned bin widths"][2])):
+        (path,) = [n for n in names if n.startswith(f"{name}_fix_gamma_learn")]
+        numpy.testing.assert_array_equal(numpy.load(os.path.join(cache_dir, path)), array)
