@@ -34,14 +34,12 @@ import functools
 import numpy
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.models.conv_eae import same_pads
 from autoencoder_based_image_compression_tpu_torch.ops.kernels.gdn_kernel import gdn_nhwc
-from autoencoder_based_image_compression_tpu_torch.utils.device import (
-    deterministic_cudnn,
-    disable_tf32,
-)
+from autoencoder_based_image_compression_tpu_torch.utils.device import disable_tf32
 
 # The "bf16w+" serving default: a full-fp32 analysis transform over a
 # bf16 synthesis transform. On the card every fp32 conv runs true fp32,
@@ -195,11 +193,13 @@ def _space_to_depth(x, block=4):
 
 
 def _depth_to_space(x, block=4):
-    """Inverse of :func:`_space_to_depth`."""
+    """Inverse of :func:`_space_to_depth`, also for ``C`` maps a pixel:
+    (B, H/b, W/b, b*b*C) -> (B, H, W, C), channel ``(i*b + j)*C + c``
+    for map ``c`` of pixel (i, j) inside each block."""
     (batch, height_blocks, width_blocks, _) = x.shape
-    x = x.reshape(batch, height_blocks, width_blocks, block, block)
-    return x.permute(0, 1, 3, 2, 4).reshape(
-        batch, height_blocks * block, width_blocks * block, 1)
+    x = x.reshape(batch, height_blocks, width_blocks, block, block, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        batch, height_blocks * block, width_blocks * block, -1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -248,12 +248,77 @@ def _tconv6_s2d(y, w9, dtype=_BF16):
     The adjoint of ``s2d -> conv(wk, padding 1)`` is
     ``conv_transpose(wk, padding 1) -> d2s``: the reference's flipped,
     IO-swapped 3x3 kernel, which is exactly the TF-SAME 9x9 stride-4
-    transposed conv. The result is fp32.
+    transposed conv. A stride-1 transposed conv is the forward conv with
+    that kernel written out (channel axes swapped, taps flipped), which
+    cuDNN sums without atomics: its backward-data pass does not repeat
+    its bits on small decodes (a batch of 2 of 64 x 96 on an H100). The
+    result is fp32.
     """
-    wk = _s2d_kernel_from_conv1(w9)
-    out16 = _run_conv(F.conv_transpose2d, y.permute(0, 3, 1, 2), wk, dtype,
-                      _F32, padding=1)
+    wk = _s2d_kernel_from_conv1(w9).transpose(0, 1).flip(-2, -1)
+    out16 = _run_conv(F.conv2d, y.permute(0, 3, 1, 2), wk, dtype, _F32, padding=1)
     return _depth_to_space(out16.permute(0, 2, 3, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _tconv4_tap_index(device):
+    """For each of the 4 x 3 x 3 taps of the phase kernels, in order, its
+    tap of the flattened 5 x 5 kernel, or 25 (a zero) where the phase has
+    none; an index tensor made once per device."""
+    (lo, _) = same_pads(5, csts.STRIDE_3)
+    index = []
+    for p_h in range(2):
+        for p_w in range(2):
+            for a_h in range(3):
+                for a_w in range(3):
+                    (t_h, t_w) = (p_h + lo + 2 - 2 * a_h, p_w + lo + 2 - 2 * a_w)
+                    index.append(t_h * 5 + t_w if 0 <= t_h < 5 and 0 <= t_w < 5 else 25)
+    return torch.tensor(index, dtype=torch.int64, device=device)
+
+
+# The phase kernels of each tconv_4 kernel tensor, built at its first use
+# outside a capture (keyed by the tensor, rebuilt if it is written to).
+_tconv4_phase_kernels = WeakIdKeyDictionary()
+
+
+def _tconv4_phase_kernel(w5):
+    """The ``(in, out, 5, 5)`` stride-2 transposed-conv kernel as the OIHW
+    ``(4 * out, in, 3, 3)`` kernel of its 2 x 2 phase decomposition.
+
+    Output pixel ``2m + p`` of the TF-SAME transposed conv (pads (1, 2),
+    full output cropped at ``lo = 1``) sums input ``m + a - 1`` times tap
+    ``p + lo + 2 - 2a`` for ``a`` in 0..2 (where that tap exists), which
+    is a 3 x 3 stride-1 correlation with padding 1 per output phase; the
+    four phases are output channel blocks ``(p_h * 2 + p_w) * out``.
+    """
+    cached = _tconv4_phase_kernels.get(w5)
+    if cached is not None and cached[0] == w5._version:
+        return cached[1]
+    (nb_in, nb_out) = w5.shape[:2]
+    taps = torch.cat([w5.reshape(nb_in, nb_out, 25), w5.new_zeros((nb_in, nb_out, 1))], dim=2)
+    wk = taps[:, :, _tconv4_tap_index(w5.device)].reshape(nb_in, nb_out, 4, 3, 3)
+    wk = wk.permute(2, 1, 0, 3, 4).reshape(4 * nb_out, nb_in, 3, 3).contiguous()
+    # Inside a capture the kernel is computed only when the graph
+    # replays, so what is built there is not kept for eager calls.
+    if not (w5.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _tconv4_phase_kernels[w5] = (w5._version, wk)
+    return wk
+
+
+def _tconv4_phases(y, w5, out_dtype=_F32, dtype=_BF16, round_input=True):
+    """The decoder's first transposed conv (5 x 5, stride 2, TF-SAME) as a
+    forward 3 x 3 conv into its four output phases, then depth-to-space.
+
+    Equal to :func:`_tconv_bf16` up to summation order. cuDNN's forward
+    convs repeat their bits from run to run, where its backward-data pass
+    (``conv_transpose2d``) sums fp32 with atomics, so a decode repeats its
+    bits without ``torch.backends.cudnn.deterministic``, which belongs to
+    the whole process.
+    """
+    if tuple(w5.shape[2:]) != (5, 5):
+        raise ValueError(f"expected a 5 x 5 kernel, got {tuple(w5.shape)}.")
+    out = _run_conv(F.conv2d, y.permute(0, 3, 1, 2), _tconv4_phase_kernel(w5), dtype,
+                    out_dtype, round_input=round_input, padding=1)
+    return _depth_to_space(out.permute(0, 2, 3, 1), block=2)
 
 
 def _encode_tail_dtypes(fp32_enc_tail):
@@ -340,19 +405,17 @@ def _synthesis(p, x, dtypes, use_s2d, exact_latents=False):
     """The synthesis transform from tconv_4 on, in the stage dtypes of
     :func:`_decode_tail_dtypes`; fp32 out."""
     (t4_dtype, t4_out, t5_dtype, t5_out, t6_dtype) = dtypes
-    # tconv_4 on fp32 operands (which is how it runs for an fp32 result,
-    # whatever its kernel's dtype) is cuDNN's backward-data pass at
-    # H/16, whose default algorithm sums with atomics: two decodes of the
-    # same symbols then differ in the last bits, bf16 roundings downstream
-    # carry that to 0.1 of a pixel level, and a captured CUDA graph cannot
-    # equal its eager run. Held to the deterministic algorithms it costs
-    # 0.06 ms a batch of 4 images of 512 x 768 on an H100. The later
-    # transposed convs of the serving mixes (bf16 tconv_5, depth-to-space
-    # tconv_6) repeat their bits as they are; fp32 tail levels keep
-    # cuDNN's default there.
-    with deterministic_cudnn():
-        x = _tconv_bf16(x, p["weights_4"], csts.STRIDE_3, out_dtype=t4_out, dtype=t4_dtype,
-                        round_input=not exact_latents)
+    # As a transposed conv, tconv_4 on fp32 operands (which is how it
+    # runs for an fp32 result, whatever its kernel's dtype) is cuDNN's
+    # backward-data pass at H/16, whose default algorithm sums with
+    # atomics: two decodes of the same symbols would differ in the last
+    # bits, bf16 roundings downstream carry that to 0.1 of a pixel level,
+    # and a captured CUDA graph could not equal its eager run. Its phase
+    # form is a forward conv, which repeats its bits, as does tconv_6's
+    # depth-to-space form; bf16 tconv_5 repeats its bits as it is, fp32
+    # tail levels do not there.
+    x = _tconv4_phases(x, p["weights_4"], out_dtype=t4_out, dtype=t4_dtype,
+                       round_input=not exact_latents)
     x = x + p["biases_4"].to(t4_out)
     x = gdn_nhwc(x, p["gamma_5"], p["beta_5"], inverse=True)
     x = _tconv_bf16(x, p["weights_5"], csts.STRIDE_2, out_dtype=t5_out,

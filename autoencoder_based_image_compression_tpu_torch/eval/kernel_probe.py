@@ -13,9 +13,10 @@ Prints the card, then one line per build with the replayed time of one
 launch (a CUDA graph of 24 launches over inputs that exceed the L2
 cache, median of 7), then the FMA rates, then what cuDNN's deterministic
 algorithms cost the decoder's two fp32 5 x 5 stride-2 transposed convs
-at the serving shapes (the engine holds the first of them to those
-algorithms, ``utils.device.deterministic_cudnn``), and whether each
-repeats its bits either way.
+at the serving shapes (``utils.device.deterministic_cudnn``), and whether
+each repeats its bits either way, beside the engine's form of the first
+(``engine/quantized.py::_tconv4_phases``: a forward conv into the four
+output phases, then depth-to-space).
 """
 
 import ctypes
@@ -26,6 +27,7 @@ import sys
 import numpy
 import torch
 
+from autoencoder_based_image_compression_tpu_torch.engine import quantized as engine
 from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel
 from autoencoder_based_image_compression_tpu_torch.utils.device import (
     deterministic_cudnn,
@@ -123,6 +125,13 @@ def transposed_conv_times(batch_sizes=(4, 24), height=512, width=768):
                 pinned_repeats = torch.equal(run(), run())
             said.append(f"{name} {default_ms:.4f} ms with cuDNN's default (repeats its bits: "
                         f"{repeats}), {pinned_ms:.4f} ms deterministic ({pinned_repeats})")
+            if name == "tconv_4":
+                x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+
+                def phases():
+                    return engine._tconv4_phases(x_nhwc, w, dtype=torch.float32)
+                said.append(f"tconv_4 as the engine's phase conv {_eager_ms(phases):.4f} ms "
+                            f"(repeats its bits: {torch.equal(phases(), phases())})")
         print(f"  fp32 transposed convs, batch of {batch_size}: " + "; ".join(said))
 
 

@@ -15,8 +15,11 @@ own gamma (loss scale and learning-rate boundaries,
 The slices are contiguous views, so every GDN site still launches the
 hand-written kernel, which a batching transform over the models could
 not do. Stacking the seven states again after a step copies them once
-(under 1 % of the step on an H100), so an epoch is the loop of ladder
-steps. Nothing in a step reads a value back to the host. The learning
+(under 1 % of the step on an H100). Nothing in a step reads a value back
+to the host, so on the card an epoch is the replays of one captured
+ladder step (``train/epoch_graph.py``, the counterpart of the JAX
+ladder's scanned epoch); on the CPU, and for a sharded ladder, it is
+the loop of ladder steps. The learning
 rate is ``LR_EAE`` times 0.1 from each boundary on
 (``train.state.learning_rate``).
 
@@ -45,6 +48,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import GraphedEpoch
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     TrainState,
     init_train_state,
@@ -199,7 +203,13 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     training_fct = over_models("training_fct")
     train_step = over_models("train_step")
 
+    graphed_epoch = GraphedEpoch(train_step)
+
     def train_epoch(states, dataset, rows, noise):
+        # A sharded ladder's blocks may sit on several devices: its epoch
+        # stays the eager loop.
+        if not isinstance(states, LadderShards) and states.step.is_cuda:
+            return graphed_epoch(states, dataset, rows, noise)
         return epoch_over_rows(train_step, states, dataset, rows, noise)
 
     return {

@@ -71,6 +71,27 @@ def map_state(fn, *states):
         step=leaf(lambda s: s.step))
 
 
+def state_leaves(state):
+    """The state's tensors as one flat list, in the fixed order in which
+    :func:`map_state` visits them (the flat view of a state)."""
+    leaves = []
+    map_state(lambda leaf: leaves.append(leaf) or leaf, state)
+    return leaves
+
+
+def copy_state_into(buffers, state):
+    """Copies every leaf of ``state`` into the same leaf of ``buffers``, a
+    state of the same shapes and dtypes, in place (one multi-tensor copy
+    on the device). Returns ``buffers``."""
+    torch._foreach_copy_(state_leaves(buffers), state_leaves(state))
+    return buffers
+
+
+def clone_state(state):
+    """A copy of the state that shares no storage with it."""
+    return map_state(torch.clone, state)
+
+
 def state_to(state, device):
     """The state (a :class:`TrainState`, or an SVHN state: named tuples
     and dicts of tensors) with every leaf moved to ``device``."""

@@ -30,6 +30,10 @@ from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.ops import density as dens
 from autoencoder_based_image_compression_tpu_torch.ops.quantization import add_uniform_noise
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import (
+    GraphedEpoch,
+    check_noises,
+)
 from autoencoder_based_image_compression_tpu_torch.train.state import adam_update
 
 
@@ -154,10 +158,10 @@ def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, 
 def epoch_over_rows(train_step, state, dataset, rows, noise):
     """``train_step`` over the ``(nb_batches, batch_size)`` row indices of
     a device-resident uint8 dataset, each batch gathered on the device;
-    ``noise`` is a generator or one ``train_step`` noise per batch."""
+    ``noise`` is a generator or one ``train_step`` noise per batch. The
+    eager loop: ``train_epoch`` takes it for a state on the CPU."""
     rows = torch.as_tensor(rows, device=dataset.device).to(torch.int64)
-    if not isinstance(noise, torch.Generator) and len(noise) != rows.shape[0]:
-        raise ValueError(f"{len(noise)} noises for {rows.shape[0]} batches.")
+    check_noises(noise, rows.shape[0])
     for (i, batch_rows) in enumerate(rows):
         batch = dataset.index_select(0, batch_rows)
         step_noise = noise if isinstance(noise, torch.Generator) else noise[i]
@@ -180,7 +184,11 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
     - ``train_epoch(state, dataset, rows, noise)``: the alternation over
       the ``(nb_batches, batch_size)`` row indices of a device-resident
       uint8 dataset, each batch gathered on the device; ``noise`` is a
-      generator or one ``train_step`` noise per batch
+      generator or one ``train_step`` noise per batch. On the card, the
+      replays of one captured ``train_step`` (``train/epoch_graph.py``,
+      the counterpart of the JAX package's scanned epoch); on the CPU,
+      the eager loop. The returned state shares no storage with the
+      given one or with the graph
     - ``evaluation(state, batch, noise)``: the training indicators
       (reference ``EntropyAutoencoder.py:542-589``): ``(scaled_approx_entropy,
       rec_error, loss_density_approx, y, approx_entropy_per_map
@@ -202,7 +210,11 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
                                   else noise)
         return training_eae_bw(training_fct(state, batch, noise_fct), batch, noise_eae)
 
+    graphed_epoch = GraphedEpoch(train_step)
+
     def train_epoch(state, dataset, rows, noise):
+        if state.step.is_cuda:
+            return graphed_epoch(state, dataset, rows, noise)
         return epoch_over_rows(train_step, state, dataset, rows, noise)
 
     @torch.no_grad()

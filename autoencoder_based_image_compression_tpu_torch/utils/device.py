@@ -38,15 +38,19 @@ def deterministic_cudnn():
 
     cuDNN's default algorithm for an fp32 transposed conv (its
     backward-data pass) sums with atomics, so two runs on the same input
-    differ in the last bits. The serving engine runs its first
-    transposed conv under this context (``engine/quantized.py``); the
-    fp32 parity transforms and training do not: there the deterministic
-    algorithms cost 18 % of a training step's device work and 8x of an
-    fp32 decode on an H100. The flag belongs to the process, not to a
+    differ in the last bits. No serving or training call opens this
+    context: the serving engine writes its first transposed conv as a
+    forward conv (``engine/quantized.py::_tconv4_phases``), and the fp32
+    parity transforms and training keep cuDNN's default (the
+    deterministic algorithms cost 18 % of a training step's device work
+    and 8x of an fp32 decode on an H100). Measurements that compare the
+    two kinds of algorithm open it (``eval/kernel_probe.py``,
+    ``chip_smoke.py``). The flag belongs to the process, not to a
     thread, so contexts may nest and may overlap across threads: the
     first to enter saves the flag and the last to leave puts it back,
     whatever the order in which they leave. While any is open, the other
-    threads' convolutions take the deterministic algorithms too.
+    threads' convolutions take the deterministic algorithms too, and a
+    CUDA graph captured meanwhile keeps them in every replay.
     """
     global _deterministic_depth, _deterministic_before
     with _DETERMINISTIC_LOCK:

@@ -29,12 +29,21 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 4. the fixed-bin-width ``roundtrip_batched`` (fused GDN+quantise);
 5. training at full width, both architectures (learned and fixed bin
    widths), on synthetic 256 x 256 crops at batch 10: a fresh state, one
-   density pre-fit epoch, three epochs of 12 ``train_step``s; fails unless
+   density pre-fit epoch, three epochs of 12 ``train_step``s, each the
+   replays of one captured step (``train/epoch_graph.py``); fails unless
    the density loss falls over the pre-fit, the rate-distortion loss of
    ``evaluation`` (same noise) falls over the steps, the projections
    hold, the gradient of the loss through the kernels agrees with the
    gradient through plain GDN, and one ``train_step`` launches the
-   expected kernels. Then: checkpoint saved and loaded back equal, a
+   expected kernels. Then the graphed epoch against the eager loop from
+   one state: one step within 1e-4 of each leaf's largest entry (per-batch
+   noise, and a generator where a graph's draws equal the eager ones,
+   which is checked first), one of two graphed epochs of 12 steps within
+   the spread of five eager epochs (measured and printed), the returned
+   state untouched by the next epoch, no GDN launch counted at a replay;
+   ms per step graphed and eager, the device's busy share in the graphed
+   epoch, the captures' seconds and graph pools. Then: checkpoint saved
+   and loaded back equal, a
    params artifact, ``collect_stats`` on held-out crops, and a few
    images served through ``PipelinedCompressor`` with those statistics,
    verified. Prints ms per ``train_step`` and per phase, steps/s, the
@@ -49,7 +58,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    42 + 21 kernels, a ladder model equals a single-model run on the same
    batches and noise, part 0 refuses to be retrained and part 1 resumes
    at part 0's step. Prints ms per ladder ``train_step`` beside seven
-   single-model steps, ladder-steps/s and the device's busy share;
+   single-model steps, ladder-steps/s and the device's busy share. Then
+   the ladder's graphed epoch against its eager loop, as in phase 5;
 7. the rate-distortion study on the committed trained models and the 24
    images of ``synthetic_kodak(seed=14)``, through ``eval/rd_sweep``: the
    one-model-per-gamma family (entropy rates) and both multiplier
@@ -67,7 +77,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    printed either way); ``fast_decode_fixed_bw`` at tails 0 and 3 against
    the fp32 decode (tail 3 within 1e-3 of the pixel range, tail 0 no
    image more than 0.5 dB under it); three "bf16w+" decodes of the same
-   latents equal; ``fast_roundtrip_scan`` eager against its CUDA graph
+   latents equal with ``torch.backends.cudnn.deterministic`` False at
+   every conv, and tconv_4's ms a batch of 4 and of 24 in the engine's
+   phase form beside ``conv_transpose2d`` with cuDNN's default and
+   deterministic algorithms; ``fast_roundtrip_scan`` eager against its CUDA graph
    (equal bit for bit, ms per K-batch program both ways);
    ``stream_roundtrip`` against ``roundtrip_batched`` (equal); the gate
    table through the scan path (fails unless the scan path's "bf16w+"
@@ -131,7 +144,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    finite, the learned model's coded rate does not rise with the
    multiplier, a second call trains and launches nothing, and a third
    call after one ``model_2.json`` is marked interrupted retrains that
-   model alone; seconds per stage; (b) ``scripts/stability_study``:
+   model alone; seconds per stage, the training stage through graphed
+   epochs (one capture a part); (b) ``scripts/stability_study``:
    ``average_gamma_params`` over (a)'s parts equal bit for bit to the
    float64 mean of the loaded checkpoints cast to float32, then the
    evaluation of the committed ``results/eae_avg/`` models held against
@@ -149,7 +163,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 Launch counts are set to 0 just before each path and read just after.
 A wrapper counts where Python calls it, so a CUDA graph counts at its
 warm-up batch and its capture and not at a replay: the expectations say
-which numbers are per capture.
+which numbers are per capture (a graphed training epoch: its warm-up
+step and its capture, two steps' launches a capture).
 Any failure exits non-zero; so does a machine without a card. Imports
 nothing of JAX.
 """
@@ -160,6 +175,7 @@ import glob
 import hashlib
 import importlib.util
 import io
+import itertools
 import json
 import os
 import pickle
@@ -263,6 +279,14 @@ STUDY_ENTRIES = {"gdn_f32": SERVE_SHAPES, "igdn_f32": SERVE_SHAPES}
 # The ladder: one epoch of 12 shared batches a part; the single-model
 # comparison runs 3 steps; the RD study's gates against the committed curves.
 (LADDER_IMAGES, LADDER_COMPARED_STEPS) = (120, 3)
+# The graphed epoch (train/epoch_graph.py): its first call per capture
+# counts the GDN launches of two steps (the warm-up step and the
+# capture), a replay none; GRAPHED_EPOCHS epochs of GRAPHED_STEPS steps are
+# held against the spread of EAGER_EPOCHS eager ones, one step to
+# ONE_STEP_GAP of each leaf's largest entry (the bound of the JAX package's
+# scan test).
+(GRAPH_PREP_STEPS, GRAPHED_STEPS, ONE_STEP_GAP) = (2, 12, 1e-4)
+(EAGER_EPOCHS, GRAPHED_EPOCHS) = (5, 2)
 RD_IMAGES_TAG = "6c3a64d647"
 # The all-bf16 fixed-bin-width fast decode: no image further under the
 # fp32 decode of the same symbols than this.
@@ -731,24 +755,63 @@ def phase_serving_variants(kernel_results, pipeline_table, psnrs_fp32):
                 expect_launches(path, launches, {"igdn_f32": len(batches),
                                                  "igdn_bf16": 2 * len(batches)})
 
-    # --- the serving decode repeats its bits (its first transposed conv
-    # is held to cuDNN's deterministic algorithms; what that costs is
-    # timed by ``eval/kernel_probe.py``).
+    # --- the serving decode repeats its bits with cuDNN's flag never set
+    # (its first transposed conv is a forward conv into the output
+    # phases), and what tconv_4 costs in that form.
     device_params = {name: value.cuda() for (name, value) in params.items()}
     bw = torch.from_numpy(bin_widths).cuda()
     qparams = engine.bf16_weight_params(device_params)
+    (_, qfolded, knobs) = engine.scan_variant(device_params, bw, "bf16w+")
+    flags = []
+
+    def recording(conv):
+        def call(*args, **kwargs):
+            flags.append(torch.backends.cudnn.deterministic)
+            return conv(*args, **kwargs)
+        return call
+
     for batch_size in (BATCH, BENCH_BATCH):
         batch = torch.from_numpy(images[:batch_size].astype(numpy.float32)).cuda()
-        quantized = bw * torch.round(conv_eae.encode(device_params, batch, True) / bw)
-        decodes = [engine.fast_decode(qparams, quantized, fp32_head=True, exact_latents=True)
-                   for _ in range(3)]
+        y = conv_eae.encode(device_params, batch, True)
+        quantized = bw * torch.round(y / bw)
+        with mock.patch.object(engine.F, "conv2d", recording(engine.F.conv2d)), \
+                mock.patch.object(engine.F, "conv_transpose2d",
+                                  recording(engine.F.conv_transpose2d)):
+            decodes = [engine.fast_decode(qparams, quantized, fp32_head=True,
+                                          exact_latents=True) for _ in range(3)]
+        if any(flags) or not flags:
+            raise AssertionError(f"cudnn.deterministic at the decode's convs: {flags}")
         if not all(torch.equal(decodes[0], other) for other in decodes[1:]):
             raise AssertionError("two bf16w+ decodes of the same latents differ")
+        # tconv_4 of both serving mixes: the pipeline's (bf16 kernel, fp32
+        # result, the dequantised latent unrounded) and the scan path's
+        # (the folded fp32 kernel on integer symbols).
+        said = []
+        for (mix, x, w5, dtype) in (
+                ("pipeline", quantized, qparams["weights_4"], torch.bfloat16),
+                ("scan", torch.round(y / bw), qfolded["weights_4"], torch.float32)):
+            copies = TIMING_FOOTPRINT_BYTES // (2 * x.numel() * x.element_size())
+            inputs = [x] + [x.clone() for _ in range(copies)]
+            (ms, ms_eager) = time_ms(lambda t: engine._tconv4_phases(
+                t, w5, dtype=dtype, round_input=False), inputs)
+
+            def transposed(t):  # the engine's form before: conv_transpose2d and the crop
+                return engine._tconv_bf16(t, w5, 2, dtype=dtype, round_input=False)
+            (default_ms, _) = time_ms(transposed, inputs)
+            with deterministic_cudnn():
+                (pinned_ms, _) = time_ms(transposed, inputs)
+            said.append(f"{mix} {ms:.4f} ms replayed ({ms_eager:.4f} eager) against "
+                        f"conv_transpose2d {default_ms:.4f} ms with cuDNN's default, "
+                        f"{pinned_ms:.4f} ms deterministic")
         print(f"  batch of {batch_size}: three bf16w+ decodes of the same latents equal bit "
-              f"for bit")
+              f"for bit, torch.backends.cudnn.deterministic False at all {len(flags)} convs; "
+              f"tconv_4 a batch: " + "; ".join(said))
+        flags.clear()
 
     # --- the K-batch round trip: eager against its CUDA graph.
     (qparams, qfolded, knobs) = engine.scan_variant(device_params, bw, "bf16w+")
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("cudnn.deterministic is set before the scan's capture")
     for batch_size in (BATCH, BENCH_BATCH):
         stack = torch.from_numpy(serving_bench.distinct_stack(
             images[:batch_size].astype(numpy.float32), SCAN_BATCHES)).cuda()
@@ -1016,25 +1079,159 @@ def traced_device_ms(run, steps, top=6):
             [(name[:60], 1e-3 * us / steps, count / steps) for (name, us, count) in kernels[:top]])
 
 
-def replayed_step_ms(step, repeats=7):
-    """Device time (ms) of ``step()`` replayed from a captured CUDA graph:
-    the step's kernels back to back, with no host work between them.
-    Capturing a training step is no part of the package yet, so a
-    capture that PyTorch refuses gives ``(None, reason)``, not a failure."""
-    try:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            kept = step()
+def state_gap(got, expected):
+    """Largest gap of two training states, leaf by leaf as a share of the
+    leaf's largest entry (+1e-6): the measure of the JAX package's scan
+    test (``tests/test_train_epoch_scan.py``)."""
+    from autoencoder_based_image_compression_tpu_torch.train.state import state_leaves
+
+    return max(float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-6))
+               for (a, b) in zip(state_leaves(got), state_leaves(expected)))
+
+
+def state_spread(got, expected):
+    """Largest gap of two training states, leaf by leaf as a share of the
+    leaf's norm, ``||a - b|| / (||b|| + 1e-6)``: after a few steps two
+    runs differ in entries that Adam moved by its whole learning rate
+    either way on a near-zero gradient (cuDNN's and the density
+    scatter's atomics change its sign from run to run), rare entries
+    that the share of the largest entry reads one at a time."""
+    from autoencoder_based_image_compression_tpu_torch.train.state import state_leaves
+
+    return max(float((a.double() - b.double()).norm() / (b.double().norm() + 1e-6))
+               for (a, b) in zip(state_leaves(got), state_leaves(expected)))
+
+
+def philox_draws_equal():
+    """Whether the replays of a captured graph draw, from a generator
+    registered with it, the numbers that the same calls made eagerly draw
+    from the same generator state (two replays of two draws of a
+    training batch's latent shape, against four eager draws)."""
+    shape = (TRAIN_BATCH, TRAIN_CROP // 16, TRAIN_CROP // 16, 128)
+    generator = torch.Generator(DEVICE).manual_seed(7)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        drawn = torch.stack([torch.rand(shape, device=DEVICE, generator=generator)
+                             for _ in range(2)])
+    replayed = []
+    for _ in range(2):
         graph.replay()
-        torch.cuda.synchronize()
-        ms = _median_ms(graph.replay, 1, repeats)
-        del kept, graph
-        return (ms, None)
-    except RuntimeError as error:
-        return (None, (str(error).splitlines() or ["RuntimeError"])[0])
+        replayed.append(drawn.clone())
+    generator.manual_seed(7)
+    eager = [torch.stack([torch.rand(shape, device=DEVICE, generator=generator)
+                          for _ in range(2)]) for _ in range(2)]
+    return all(torch.equal(a, b) for (a, b) in zip(replayed, eager))
 
 
-def phase_training(kernel_results, learn_bin_widths):
+def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
+    """``train_epoch`` on the card (replays of a captured step, with
+    ``train/epoch_graph.py``) against the eager loop
+    (``train.step.epoch_over_rows``) from one state, at full width.
+
+    One step, with per-batch noise (and with a generator where the
+    graph's draws equal the eager ones): within ``ONE_STEP_GAP`` of each
+    leaf's largest entry. ``GRAPHED_STEPS`` steps: cuDNN's and the
+    density scatter's atomics make two eager epochs differ, so the
+    spread of ``EAGER_EPOCHS`` eager epochs (the largest
+    :func:`state_spread` of two) is measured, and one of
+    ``GRAPHED_EPOCHS`` graphed epochs must lie within it of its nearest
+    eager epoch (each run, eager or graphed, differs from the others by
+    its own draw of the atomics' order, and a single graphed epoch against
+    three eager ones fell outside on a right graph). An epoch fed other
+    noise is printed beside it for scale.
+    Then: the state the first epoch returned does not move
+    when the next epoch runs, a graphed epoch counts no GDN launch, and
+    the ms per step graphed and eager, the kernels' time a step in a
+    trace of the graphed epoch, the captures' seconds and memory.
+    ``step_noise(i)`` is batch ``i``'s explicit ``train_step`` noise.
+    Returns ``(graphed ms a step, eager ms a step)``."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
+    from autoencoder_based_image_compression_tpu_torch.train.state import (
+        clone_state,
+        state_leaves,
+    )
+    from autoencoder_based_image_compression_tpu_torch.train.step import epoch_over_rows
+
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("torch.backends.cudnn.deterministic is set before the capture")
+    order = numpy.random.default_rng(30).permutation(dataset.shape[0])
+    rows = order[:GRAPHED_STEPS * TRAIN_BATCH].reshape(GRAPHED_STEPS, TRAIN_BATCH)
+    noises = [step_noise(i) for i in range(GRAPHED_STEPS)]
+    shared = torch.Generator(DEVICE)
+    forms = {"per-batch noise": lambda nb: noises[:nb],
+             "generator": lambda nb: shared.manual_seed(41)}
+    captures = len(epoch_graph.CAPTURES)
+
+    def eager(nb, noise):
+        return epoch_over_rows(fns["train_step"], state, dataset, rows[:nb], noise(nb))
+
+    for (form, noise) in forms.items():
+        graphed = fns["train_epoch"](state, dataset, rows[:1], noise(1))
+        expected = eager(1, noise)
+        (gap, spread) = (state_gap(graphed, expected), state_gap(eager(1, noise), expected))
+        held = form == "per-batch noise" or draws_equal
+        print(f"  one graphed step against one eager step, {tag}, {form}: largest gap "
+              f"{gap:.3e} of a leaf's largest entry (eager against eager {spread:.3e}) "
+              + (f"[{ONE_STEP_GAP:g}]" if held else
+                 "[not held: the graph's draws differ from the eager ones]"))
+        if held and not gap <= ONE_STEP_GAP:
+            raise AssertionError(f"{tag}: one graphed step is {gap} off the eager step")
+    form = "generator" if draws_equal else "per-batch noise"
+    noise = forms[form]
+    eagers = [eager(GRAPHED_STEPS, noise) for _ in range(EAGER_EPOCHS)]
+    graphs = [fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
+              for _ in range(GRAPHED_EPOCHS)]
+    other = epoch_over_rows(fns["train_step"], state, dataset, rows,
+                            [step_noise(GRAPHED_STEPS + i) for i in range(GRAPHED_STEPS)])
+    spread = max(state_spread(a, b) for (a, b) in itertools.combinations(eagers, 2))
+    nearest = [min(state_spread(graphed, e) for e in eagers) for graphed in graphs]
+    finite = all(bool(torch.isfinite(leaf.double()).all())
+                 for g in graphs for leaf in state_leaves(g))
+    print(f"  {GRAPHED_EPOCHS} graphed epochs of {GRAPHED_STEPS} steps against "
+          f"{EAGER_EPOCHS} eager epochs, {tag}, {form}: gap to the nearest eager epoch "
+          + " and ".join(f"{gap:.3e}" for gap in nearest) + " of a leaf's norm; eager "
+          f"against eager up to {spread:.3e} [one graphed epoch within that spread]; an epoch "
+          f"fed other noise {min(state_spread(other, e) for e in eagers):.3e}")
+    if not (min(nearest) <= spread and finite
+            and all(torch.equal(g.step, state.step + GRAPHED_STEPS) for g in graphs)):
+        raise AssertionError(f"{tag}: the graphed epochs are {nearest} off the eager epochs "
+                             f"(spread {spread}), finite {finite}")
+    kept = clone_state(graphs[0])
+    fns["train_epoch"](graphs[0], dataset, rows, noise(GRAPHED_STEPS))
+    if not all(torch.equal(a, b) for (a, b) in zip(state_leaves(graphs[0]),
+                                                    state_leaves(kept))):
+        raise AssertionError(f"{tag}: the next graphed epoch moved the state returned before")
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
+    torch.cuda.synchronize()
+    expect_launches(f"graphed epoch ({GRAPHED_STEPS} replays, no capture), {tag}",
+                    dict(gk.LAUNCHES), {})
+
+    # Times: CUDA events round one epoch of GRAPHED_STEPS steps, median of 5.
+    eager_ms = _median_ms(lambda: eager(GRAPHED_STEPS, noise), GRAPHED_STEPS, 5)
+    graphed_ms = _median_ms(lambda: fns["train_epoch"](state, dataset, rows,
+                                                       noise(GRAPHED_STEPS)),
+                            GRAPHED_STEPS, 5)
+    (traced_ms, _) = traced_device_ms(lambda: fns["train_epoch"](state, dataset, rows,
+                                                                 noise(GRAPHED_STEPS)), 2)
+    made = epoch_graph.CAPTURES[captures:]
+    print(f"  {tag}: {graphed_ms:.3f} ms a step graphed against {eager_ms:.3f} ms eager "
+          f"(eager / graphed {eager_ms / graphed_ms:.2f}), epochs of {GRAPHED_STEPS} steps "
+          "with their copies in and out; device busy in the graphed epoch "
+          + ("not measured (the trace holds no device time)" if traced_ms is None else
+             f"{100 * traced_ms / GRAPHED_STEPS / graphed_ms:.1f} % "
+             f"({traced_ms / GRAPHED_STEPS:.3f} ms of kernels a step in a profiler trace)")
+          + f"; {len(made)} captures: "
+          + ", ".join(f"{c['nb_batches']} x {c['batch_size']} rows, {c['noise']}: warm-up "
+                      f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, graph pool "
+                      f"{c['pool_bytes'] / 2 ** 20:.0f} MiB" for c in made))
+    return (graphed_ms, eager_ms)
+
+
+def phase_training(kernel_results, learn_bin_widths, draws_equal):
     from autoencoder_based_image_compression_tpu_torch import constants as csts
     from autoencoder_based_image_compression_tpu_torch.cli import collect_stats
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
@@ -1089,11 +1286,12 @@ def phase_training(kernel_results, learn_bin_widths):
     per_step = {name: sum(1 for (variant, _) in sites if variant == name)
                 for name in ("gdn_f32", "igdn_f32")}
     # Evaluations (3) and pre-fit steps encode (and the evaluations
-    # decode) beside the steps' launches.
+    # decode) beside the steps' launches; the epochs are replays of one
+    # captured step, counted at its warm-up step and its capture.
     gdn_encode = per_step["gdn_f32"] // 2
     expect_launches(f"training, {tag}", launches, {
-        "gdn_f32": steps * per_step["gdn_f32"] + (3 + nb_batches) * gdn_encode,
-        "igdn_f32": (steps + 3) * per_step["igdn_f32"]})
+        "gdn_f32": GRAPH_PREP_STEPS * per_step["gdn_f32"] + (3 + nb_batches) * gdn_encode,
+        "igdn_f32": (GRAPH_PREP_STEPS + 3) * per_step["igdn_f32"]})
     print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
           f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
           f"{steps} train_steps (before the pre-fit {rd_0:.6e}); rec error "
@@ -1134,6 +1332,8 @@ def phase_training(kernel_results, learn_bin_widths):
                   f"a profiler trace, against the step's {step_ms:.3f} ms)"))
     for (name, ms, count) in top_kernels:
         print(f"    {ms:.4f} ms a step, {count:.1f} launches: {name}")
+    hold_graphed_epoch(tag, fns, state, dataset, lambda i: (
+        _uniform_noise(latent, 60 + 2 * i), _uniform_noise(latent, 61 + 2 * i)), draws_equal)
 
     with tempfile.TemporaryDirectory() as root:
         exp_dir = os.path.join(root, experiment_suffix(1.0, TRAIN_GAMMA, learn_bin_widths))
@@ -1178,9 +1378,7 @@ def phase_training(kernel_results, learn_bin_widths):
           f"{bits.sum() / images[..., 0].size:.4f} bpp, PSNR mean {numpy.mean(psnrs):.4f} dB")
     if not numpy.all(numpy.isfinite(psnrs)):
         raise AssertionError(f"{tag}: PSNR {psnrs}")
-    step_noise = (_uniform_noise(latent, 4), _uniform_noise(latent, 5))
-    return ({f"training, {tag}": launches}, step_ms,
-            lambda: fns["train_step"](state, eval_batch, step_noise))
+    return {f"training, {tag}": launches}
 
 
 def _run_printing(main, args, keep=None):
@@ -1196,11 +1394,10 @@ def _run_printing(main, args, keep=None):
     return (result, printed)
 
 
-def phase_ladder():
+def phase_ladder(draws_equal):
     """The gamma ladder at full width through ``cli/train_ladder``, held
-    against the single-model step functions. Returns the path's launch
-    counts, the ladder ``train_step``'s eager ms and a closure of one
-    ladder step on fixed noise (for the CUDA-graph replay)."""
+    against the single-model step functions, and its graphed epoch
+    against the eager loop. Returns the path's launch counts."""
     from autoencoder_based_image_compression_tpu_torch import constants as csts
     from autoencoder_based_image_compression_tpu_torch.cli import train_ladder
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
@@ -1284,10 +1481,11 @@ def phase_ladder():
         resumed = load_part(2)
     # Part 0: the pre-fit encodes once a batch and model; each of the two
     # evaluations (training and validation portion) encodes and decodes once
-    # a model; each of the 12 ladder steps is 6 GDN + 3 IGDN a model.
+    # a model; a ladder step is 6 GDN + 3 IGDN a model, and the epoch's 12
+    # are replays of one captured step (counted at its warm-up and capture).
     expect_launches("ladder training (part 0)", part_launches, {
-        "gdn_f32": nb_models * 3 * (nb_batches + 2 + 2 * nb_batches),
-        "igdn_f32": nb_models * 3 * (2 + nb_batches)})
+        "gdn_f32": nb_models * 3 * (nb_batches + 2 + 2 * GRAPH_PREP_STEPS),
+        "igdn_f32": nb_models * 3 * (2 + GRAPH_PREP_STEPS)})
     epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
     if epoch is None or f"global step {nb_batches})" not in printed_1:
         raise AssertionError("the ladder CLI's epoch lines are not as expected")
@@ -1372,8 +1570,10 @@ def phase_ladder():
                   f"step in a profiler trace, against the step's {ladder_ms:.3f} ms)"))
     for (name, ms, count) in top_kernels:
         print(f"    {ms:.4f} ms a ladder step, {count:.1f} launches: {name}")
-    return ({"ladder training": part_launches}, ladder_ms,
-            lambda: fns["train_step"](trained, eval_batch, noises[0]))
+    hold_graphed_epoch(f"the ladder of {nb_models}", fns, trained, dataset, lambda i: [
+        (_uniform_noise(latent, 200 + 20 * i + 2 * k), _uniform_noise(latent, 201 + 20 * i + 2 * k))
+        for k in range(nb_models)], draws_equal)
+    return {"ladder training": part_launches}
 
 
 def _campaign_launches(args, one_model=False):
@@ -1381,8 +1581,9 @@ def _campaign_launches(args, one_model=False):
     the eight models, or (``one_model``) of one fixed model's last part.
     A part: the pre-fit (part 0 only) encodes once a batch, each epoch's
     two evaluations encode and decode once, a step encodes twice (the
-    density and autoencoder phases) and decodes once; 3 sites a
-    fixed-bin-width model, 2 for the learned one."""
+    density and autoencoder phases) and decodes once, and the part's
+    epochs replay one captured step, counted at its warm-up and its
+    capture; 3 sites a fixed-bin-width model, 2 for the learned one."""
     nb_batches = args.nb_training // args.batch_size
     (gdn, igdn) = (0, 0)
     models = ([(3, 1)] if one_model else
@@ -1391,8 +1592,8 @@ def _campaign_launches(args, one_model=False):
     for idx_part in parts:
         for (sites, nb_models) in models:
             gdn += nb_models * sites * ((nb_batches if idx_part == 0 else 0)
-                                        + 2 * args.nb_epochs + 2 * nb_batches * args.nb_epochs)
-            igdn += nb_models * sites * (2 * args.nb_epochs + nb_batches * args.nb_epochs)
+                                        + 2 * args.nb_epochs + 2 * GRAPH_PREP_STEPS)
+            igdn += nb_models * sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
     return {"gdn_f32": gdn, "igdn_f32": igdn}
 
 
@@ -2318,7 +2519,7 @@ def phase_campaign(card):
         resilient_campaign,
         stability_study,
     )
-    from autoencoder_based_image_compression_tpu_torch.train import checkpoint
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint, epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
     from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
 
@@ -2371,6 +2572,7 @@ def phase_campaign(card):
         def campaign(label, training_expected, statistics_expected, evaluation_expected):
             """One call of the campaign; returns ``(part seconds, study)``."""
             stage_s = {}
+            captured = len(epoch_graph.CAPTURES)
             if route == "main":
                 gk.reset_launch_counts()
                 t0 = time.perf_counter()
@@ -2422,10 +2624,15 @@ def phase_campaign(card):
                 study = quiet(rd_campaign.evaluate, args, data, False)
                 stage_s["evaluation"] = time.perf_counter() - t0
                 record(f"{label}: rd evaluation", evaluation_expected, STUDY_ENTRIES)
+            made = epoch_graph.CAPTURES[captured:]
             print(f"  {label}: seconds per stage "
                   + ", ".join(f"{stage} {s:.2f}" for (stage, s) in stage_s.items())
                   + "; parts trained: " + (", ".join(f"{part} {s:.2f} s" for (part, s)
-                                                      in part_s.items()) or "none"))
+                                                      in part_s.items()) or "none")
+                  + f"; their epochs graphed, {len(made)} captures, warm-up and capture "
+                  f"{sum(c['warmup_s'] + c['capture_s'] for c in made):.2f} s in all")
+            if DEVICE == "cuda" and len(made) != len(part_s):
+                raise AssertionError(f"{label}: {len(made)} captures for {len(part_s)} parts")
             return (part_s, study)
 
         # First call: everything is trained, collected, exported and evaluated.
@@ -2691,25 +2898,17 @@ def main():
     (path_launches, pipeline_table, psnrs_fp32) = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
     path_launches.update(phase_fixed_bw())
-    print("phase 5: training (pre-fit, train_step, checkpoint, collect_stats, serve)")
-    replays = {}
+    print("phase 5: training (pre-fit, graphed epochs, train_step, checkpoint, "
+          "collect_stats, serve)")
+    draws_equal = philox_draws_equal()
+    print(f"  a CUDA graph's replays draw what eager calls draw from the same generator "
+          f"state: {draws_equal}")
     for learn_bin_widths in (True, False):
-        (launches, step_ms, step) = phase_training(kernel_results, learn_bin_widths)
-        path_launches.update(launches)
-        replays[next(iter(launches))] = (step_ms, step)
+        path_launches.update(phase_training(kernel_results, learn_bin_widths, draws_equal))
     print("phase 6: the gamma ladder (cli/train_ladder, seven models)")
-    (launches, ladder_ms, ladder_step) = phase_ladder()
-    path_launches.update(launches)
-    replays["ladder training"] = (ladder_ms, ladder_step)
+    path_launches.update(phase_ladder(draws_equal))
     print("phase 7: the rate-distortion study (eval/rd_sweep on the committed models)")
     path_launches.update(phase_rd_study())
-    # Last of the device work: a refused capture may leave the context unusable.
-    for (path, (step_ms, step)) in replays.items():
-        (replayed_ms, reason) = replayed_step_ms(step)
-        print(f"  one train_step replayed from a CUDA graph, {path}: "
-              + (f"not measured ({reason})" if replayed_ms is None else
-                 f"{replayed_ms:.3f} ms of device work against {step_ms:.3f} ms eager "
-                 f"(device busy {100 * replayed_ms / step_ms:.1f} % of the eager step)"))
 
     print("phase 7b: the rest of serving (bf16w, int8, fixed-bw fast decode, scan graph, "
           "streaming) and the serving bench")

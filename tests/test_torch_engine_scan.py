@@ -192,28 +192,97 @@ def test_scan_variant_names_and_knobs():
     assert qfolded["weights_5"].dtype == qfolded["weights_6"].dtype == torch.bfloat16
 
 
-def test_first_transposed_conv_runs_under_deterministic_cudnn(monkeypatch):
-    """cuDNN's default fp32 backward-data algorithm sums with atomics: on
-    the card two decodes of the same symbols differed by up to 0.1 of a
-    pixel level and a captured graph could not equal its eager run. The
-    engine's tconv_4 asks for the deterministic algorithms, and the flag
-    is put back afterwards."""
-    seen = []
-    plain = engine.F.conv_transpose2d
+def test_no_serving_decode_sets_cudnn_deterministic(monkeypatch):
+    """``torch.backends.cudnn.deterministic`` belongs to the whole
+    process: a decode that set it would hand every other thread's
+    convolutions (and any CUDA graph captured meanwhile) cuDNN's slow
+    deterministic algorithms. No serving decode sets it, and it is False
+    at every convolution of each: the fast decodes of the three scan
+    variants, both ``fast_decode_fixed_bw`` tails, the K-batch round
+    trip and the pipeline's bf16w+ decode."""
+    module = type(torch.backends.cudnn)
+    flag = module.__dict__["deterministic"]
+    (sets, seen) = ([], [])
 
-    def recording(*args, **kwargs):
-        seen.append(torch.backends.cudnn.deterministic)
-        return plain(*args, **kwargs)
+    class Recording:
+        def __get__(self, obj, objtype=None):
+            return flag.__get__(obj, objtype)
 
-    monkeypatch.setattr(engine.F, "conv_transpose2d", recording)
+        def __set__(self, obj, value):
+            sets.append(value)
+            flag.__set__(obj, value)
+
+    def recording(conv):
+        def call(*args, **kwargs):
+            seen.append(torch.backends.cudnn.deterministic)
+            return conv(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(module, "deterministic", Recording())
+    for name in ("conv2d", "conv_transpose2d"):
+        monkeypatch.setattr(engine.F, name, recording(getattr(engine.F, name)))
     (_, params, bin_widths) = _models(LEARNED)
     symbols = torch.zeros((1, 2, 2, 128))
-    assert torch.backends.cudnn.deterministic is False
     for variant in ("bf16w+", "bf16w", "int8"):
-        (_, qfolded, knobs) = engine.scan_variant(params, bin_widths, variant)
+        (qparams, qfolded, knobs) = engine.scan_variant(params, bin_widths, variant)
         engine.fast_decode(qfolded, symbols, fp32_tconv4=knobs.get("fp32_tconv4", False))
-    assert seen == [True, False, False] * 3
-    assert torch.backends.cudnn.deterministic is False
+        engine.fast_roundtrip_scan(qparams, qfolded, torch.from_numpy(_stack(1)[:, :1, :32, :32]),
+                                   bin_widths, **knobs)
+    engine.fast_decode(engine.bf16_weight_params(params), symbols, fp32_head=True,
+                       exact_latents=True)
+    (_, fixed, fixed_bw) = _models(FIXED)
+    for fp32_tail in (0, 3):
+        engine.fast_decode_fixed_bw(engine.bf16_weight_params(fixed, fp32_tail=fp32_tail),
+                                    symbols, fixed_bw, fp32_tail=fp32_tail)
+    assert sets == []
+    assert len(seen) >= 30 and not any(seen)
+
+
+@pytest.mark.parametrize("size", [(4, 6), (5, 7)], ids=["even", "odd"])
+@pytest.mark.parametrize("mix", ["fp32", "bf16 kernel, fp32 result", "bf16"])
+def test_tconv4_phases_equal_the_transposed_conv(size, mix):
+    """tconv_4 as a forward conv into its four output phases then
+    depth-to-space, against ``conv_transpose2d`` with the TF-SAME crop,
+    in each dtype a serving mix runs it in: fp32 operands (the scan
+    path's folded kernel), a bf16 kernel into an fp32 result on the
+    unrounded latent (the pipeline's bf16w+), all bf16 ("bf16w", "int8").
+    rtol 1e-5 with an atol of 1e-5 of the largest output (sums of 1,152
+    products in another order), and for a bf16 result one bf16 ulp more
+    (the two sums may round to neighbouring bf16 numbers)."""
+    (dtype, out_dtype, round_input) = {
+        "fp32": (torch.float32, torch.float32, True),
+        "bf16 kernel, fp32 result": (torch.bfloat16, torch.float32, False),
+        "bf16": (torch.bfloat16, torch.bfloat16, True)}[mix]
+    (_, params, _) = _models(LEARNED)
+    generator = torch.Generator().manual_seed(sum(size))
+    y = 3.0 * torch.randn((2, *size, 128), generator=generator)
+    w5 = params["weights_4"]
+    got = engine._tconv4_phases(y, w5, out_dtype=out_dtype, dtype=dtype,
+                                round_input=round_input)
+    expected = engine._tconv_bf16(y, w5, 2, out_dtype=out_dtype, dtype=dtype,
+                                  round_input=round_input)
+    assert got.shape == expected.shape == (2, 2 * size[0], 2 * size[1], 128)
+    assert got.dtype == expected.dtype == out_dtype
+    (got, expected) = (got.float(), expected.float())
+    rtol = 1e-5 + (2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got, expected, rtol=rtol, atol=1e-5 * float(expected.abs().max()))
+
+
+def test_tconv4_phase_kernel_is_built_once_per_kernel_tensor():
+    """The phase kernel is kept for the tensor it was built from (no
+    gather, no index copy per decode) and built again when that tensor is
+    written to."""
+    w5 = torch.randn((8, 6, 5, 5), generator=torch.Generator().manual_seed(0))
+    first = engine._tconv4_phase_kernel(w5)
+    assert first.shape == (24, 8, 3, 3)
+    assert engine._tconv4_phase_kernel(w5) is first
+    w5.mul_(2.0)
+    again = engine._tconv4_phase_kernel(w5)
+    assert again is not first and torch.equal(again, 2.0 * first)
+    # Phase (0, 0) takes the odd taps (3, 1) at offsets (0, 1) and none at 2.
+    assert torch.equal(first[:6, :, 1, 1], (w5[:, :, 1, 1] / 2.0).t())
+    assert torch.equal(first[:6, :, 0, 0], (w5[:, :, 3, 3] / 2.0).t())
+    assert not bool(first[:6, :, 2, :].any()) and not bool(first[:6, :, :, 2].any())
 
 
 def test_deterministic_cudnn_overlapping_on_two_threads_restores_the_flag():
