@@ -4,6 +4,7 @@
 // autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py:
 //   _gdn_kernel           (entry gdn_pallas_2d)          -> gdn_f32_kernel<RM, inverse, false>
 //                                                           gdn_bf16_kernel<inverse>
+//       with a model axis (the JAX ladder's vmap of it)     -> gdn_f32_kernel<RM, inverse, false, true>
 //   _gdn_quantize_kernel  (entry gdn_quantize_pallas_2d) -> gdn_f32_kernel<RM, inverse, true>
 //
 // Per row of a (rows, 128) channels-last matrix:
@@ -59,6 +60,15 @@
 // function unit (the result is rounded to bf16 right after; the reference
 // takes rsqrt too); with the IEEE sequences it, not the bytes, set the time.
 // Results go back through the warp's staged tile and leave as 16-byte stores.
+//
+// Design, fp32 with a model axis (gdn_f32_kernel<..., kStacked = true>): the
+// gamma ladder's M models share a batch, so a grouped conv leaves their
+// activations side by side, (rows, M, 128) channels-last. blockIdx.y is the
+// model: a block loads that model's gamma and beta once and walks that
+// model's row tiles with a row stride of M * 128 floats; gridDim.x blocks
+// serve each model. Every row's arithmetic is that of the single-model
+// kernel, so one model of a stacked call equals the single-model kernel on
+// the same rows bit for bit.
 //
 // The ragged row tail is zero-filled on load and masked on store; there is no
 // padding copy. The quantiser divides with IEEE '/' and rounds half to even
@@ -147,12 +157,20 @@ __device__ __forceinline__ float finish(float x, float pool, float bw) {
   return y;
 }
 
-template <int RM, bool kInverse, bool kQuantize>
+template <int RM, bool kInverse, bool kQuantize, bool kStacked = false>
 __global__ void __launch_bounds__(kThreads, RM <= 2 ? 2 : 1)
 gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ bin_widths,
                float* __restrict__ out, int64_t rows) {
   constexpr int kWarpRows = kLanesY * RM;  // rows of one warp's tile
+  // Floats between two rows: one model's 128 channels, or all M models'.
+  const int64_t row_stride = kStacked ? static_cast<int64_t>(gridDim.y) * kChannels : kChannels;
+  if (kStacked) {  // this block's model
+    x += static_cast<int64_t>(blockIdx.y) * kChannels;
+    out += static_cast<int64_t>(blockIdx.y) * kChannels;
+    gamma += static_cast<int64_t>(blockIdx.y) * kChannels * kChannels;
+    beta += static_cast<int64_t>(blockIdx.y) * kChannels;
+  }
   extern __shared__ float4 smem[];
   float* gam = reinterpret_cast<float*>(smem);  // [k][c]
   const int tid = threadIdx.x;
@@ -172,7 +190,7 @@ gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     for (int r = 0; r < kWarpRows; ++r) {  // one row of 512 bytes a step
       const int64_t row = tile * kWarpRows + r;
       const bool valid = row < rows;
-      cp_async16(dst + r * kXStride + 4 * lane, valid ? x + row * kChannels + 4 * lane : x,
+      cp_async16(dst + r * kXStride + 4 * lane, valid ? x + row * row_stride + 4 * lane : x,
                  valid ? 16 : 0);
     }
   };
@@ -265,7 +283,7 @@ gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
           y.y = finish<kInverse, kQuantize>(xv.y, acc[i][4 * q + 1] + beta_q[q].y, bw_q[q].y);
           y.z = finish<kInverse, kQuantize>(xv.z, acc[i][4 * q + 2] + beta_q[q].z, bw_q[q].z);
           y.w = finish<kInverse, kQuantize>(xv.w, acc[i][4 * q + 3] + beta_q[q].w, bw_q[q].w);
-          *reinterpret_cast<float4*>(out + row * kChannels + c) = y;
+          *reinterpret_cast<float4*>(out + row * row_stride + c) = y;
         }
       }
     }
@@ -446,11 +464,12 @@ gdn_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g
 
 // -------------------------------------------------------------- launch ----
 
-// Launches `kernel` over `num_blocks_wanted` blocks at most, capped at the
-// blocks resident on the whole card (the kernels are persistent).
+// Launches `kernel` over `num_blocks_wanted` blocks at most for each of
+// `models` models (gridDim.y), capped at the blocks resident on the whole
+// card (the kernels are persistent).
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int smem_bytes, int* max_grid, int64_t num_blocks_wanted,
-           void* stream, Args... args) {
+           int models, void* stream, Args... args) {
   if (*max_grid == 0) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -464,39 +483,44 @@ int launch(Kernel kernel, int smem_bytes, int* max_grid, int64_t num_blocks_want
     if (err != cudaSuccess) return static_cast<int>(err);
     *max_grid = sms * std::max(per_sm, 1);
   }
-  if (num_blocks_wanted <= 0) return 0;
-  const int grid = static_cast<int>(std::min<int64_t>(num_blocks_wanted, *max_grid));
+  if (num_blocks_wanted <= 0 || models <= 0) return 0;
+  if (models > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(
+                      std::min<int64_t>(num_blocks_wanted, std::max(*max_grid / models, 1))),
+                  static_cast<unsigned>(models));
   kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // A block tile of kTileRows rows: each warp's tile is an eighth of it.
-template <int kTileRows, bool kInverse, bool kQuantize>
+// `rows` counts the rows of one model.
+template <int kTileRows, bool kInverse, bool kQuantize, bool kStacked>
 int launch_f32(const void* x, const void* gamma, const void* beta, const void* bin_widths,
-               void* out, int64_t rows, void* stream) {
+               void* out, int64_t rows, int models, void* stream) {
   static int max_grid = 0;  // resident blocks on the whole card
   constexpr int RM = kTileRows / kWarps / kLanesY;
-  return launch(gdn_f32_kernel<RM, kInverse, kQuantize>, f32_smem_bytes(kTileRows / kWarps),
-                &max_grid, (rows + kTileRows - 1) / kTileRows, stream,
+  return launch(gdn_f32_kernel<RM, kInverse, kQuantize, kStacked>,
+                f32_smem_bytes(kTileRows / kWarps), &max_grid,
+                (rows + kTileRows - 1) / kTileRows, models, stream,
                 static_cast<const float*>(x), static_cast<const float*>(gamma),
                 static_cast<const float*>(beta), static_cast<const float*>(bin_widths),
                 static_cast<float*>(out), rows);
 }
 
-template <bool kInverse, bool kQuantize>
+template <bool kInverse, bool kQuantize, bool kStacked = false>
 int launch_f32_tiled(const void* x, const void* gamma, const void* beta,
                      const void* bin_widths, void* out, int64_t rows, int tile_rows,
-                     void* stream) {
+                     void* stream, int models = 1) {
   switch (tile_rows) {
     case 128:
-      return launch_f32<128, kInverse, kQuantize>(x, gamma, beta, bin_widths, out, rows,
-                                                  stream);
+      return launch_f32<128, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                            rows, models, stream);
     case 64:
-      return launch_f32<64, kInverse, kQuantize>(x, gamma, beta, bin_widths, out, rows,
-                                                 stream);
+      return launch_f32<64, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                           rows, models, stream);
     case 32:
-      return launch_f32<32, kInverse, kQuantize>(x, gamma, beta, bin_widths, out, rows,
-                                                 stream);
+      return launch_f32<32, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                           rows, models, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -508,7 +532,7 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, void* out, i
   static int max_grid = 0;
   constexpr int kBlockRows = kWarps * kMmaRows;
   return launch(gdn_bf16_kernel<kInverse>, kBf16SmemBytes, &max_grid,
-                (rows + kBlockRows - 1) / kBlockRows, stream,
+                (rows + kBlockRows - 1) / kBlockRows, 1, stream,
                 static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
                 static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(out), rows);
 }
@@ -522,6 +546,8 @@ extern "C" {
 // C-contiguous, 16-byte aligned buffers: x and out (rows, 128), gamma
 // (128, 128) fp32 indexed [k][c], beta and bin_widths (128,) fp32.
 // `tile_rows` is the fp32 kernels' tile height: 128, 64 or 32.
+// aeic_gdn_f32_stacked takes `models` models at once: x and out are
+// (rows, models, 128), gamma (models, 128, 128) and beta (models, 128).
 
 int aeic_gdn_f32(const void* x, const void* gamma, const void* beta, void* out,
                  int64_t rows, int inverse, int tile_rows, void* stream) {
@@ -529,6 +555,14 @@ int aeic_gdn_f32(const void* x, const void* gamma, const void* beta, void* out,
                                                  tile_rows, stream)
                  : launch_f32_tiled<false, false>(x, gamma, beta, nullptr, out, rows,
                                                   tile_rows, stream);
+}
+
+int aeic_gdn_f32_stacked(const void* x, const void* gamma, const void* beta, void* out,
+                         int64_t rows, int models, int inverse, int tile_rows, void* stream) {
+  return inverse ? launch_f32_tiled<true, false, true>(x, gamma, beta, nullptr, out, rows,
+                                                       tile_rows, stream, models)
+                 : launch_f32_tiled<false, false, true>(x, gamma, beta, nullptr, out, rows,
+                                                        tile_rows, stream, models);
 }
 
 int aeic_gdn_bf16(const void* x, const void* gamma, const void* beta, void* out,

@@ -29,15 +29,19 @@ Precision on the card:
   (fp32 accumulation, bf16 result) is used.
 """
 
-import functools
-
 import numpy
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakIdKeyDictionary
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
-from autoencoder_based_image_compression_tpu_torch.models.conv_eae import same_pads
+from autoencoder_based_image_compression_tpu_torch.models.conv_eae import (  # noqa: F401
+    _depth_to_space,
+    _s2d_kernel_from_conv1,
+    _s2d_tap_index,
+    _tconv4_phase_kernel,
+    _tconv6_phase_kernel,
+    same_pads,
+)
 from autoencoder_based_image_compression_tpu_torch.ops.kernels.gdn_kernel import gdn_nhwc
 from autoencoder_based_image_compression_tpu_torch.utils.device import disable_tf32
 
@@ -192,49 +196,6 @@ def _space_to_depth(x, block=4):
         batch, height // block, width // block, block * block)
 
 
-def _depth_to_space(x, block=4):
-    """Inverse of :func:`_space_to_depth`, also for ``C`` maps a pixel:
-    (B, H/b, W/b, b*b*C) -> (B, H, W, C), channel ``(i*b + j)*C + c``
-    for map ``c`` of pixel (i, j) inside each block."""
-    (batch, height_blocks, width_blocks, _) = x.shape
-    x = x.reshape(batch, height_blocks, width_blocks, block, block, -1)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(
-        batch, height_blocks * block, width_blocks * block, -1)
-
-
-@functools.lru_cache(maxsize=None)
-def _s2d_tap_index(device):
-    """For each of the 81 taps of the 9x9 kernel, in order, its place in
-    the flattened (16, 3, 3) space-to-depth kernel, as an index tensor on
-    ``device`` (made once per device: building it at every call would be
-    a host-to-device copy per transform, which a CUDA-graph capture
-    refuses)."""
-    index = []
-    for t_h in range(9):
-        (a_h, j_h) = (1 + (t_h - 2) // 4, (t_h - 2) % 4)
-        for t_w in range(9):
-            (a_w, j_w) = (1 + (t_w - 2) // 4, (t_w - 2) % 4)
-            index.append((j_h * 4 + j_w) * 9 + a_h * 3 + a_w)
-    return torch.tensor(index, dtype=torch.int64, device=device)
-
-
-def _s2d_kernel_from_conv1(w9):
-    """The OIHW ``(nb_out, 1, 9, 9)`` stride-4 kernel as the OIHW
-    ``(nb_out, 16, 3, 3)`` kernel of the space-to-depth formulation.
-
-    A TF-SAME 9x9 stride-4 conv pads (2, 3); after space-to-depth(4) the
-    same linear map is a 3x3 stride-1 SAME conv over 16-channel block
-    pixels: tap t (offset d = t - 2 from the output block's origin)
-    lands in block a = 1 + floor(d / 4) at intra-block position
-    j = d mod 4.
-    """
-    nb_out = w9.shape[0]
-    wk = w9.new_zeros((nb_out, 16 * 9))
-    # One scatter instead of 81 small copies (each a launch on the card).
-    wk[:, _s2d_tap_index(w9.device)] = w9.reshape(nb_out, 81)
-    return wk.reshape(nb_out, 16, 3, 3)
-
-
 def _conv1_s2d(x, w9, dtype=_BF16, out_dtype=_F32):
     """The encoder's first conv as space-to-depth + 3x3 SAME conv."""
     wk = _s2d_kernel_from_conv1(w9)
@@ -254,54 +215,9 @@ def _tconv6_s2d(y, w9, dtype=_BF16):
     its bits on small decodes (a batch of 2 of 64 x 96 on an H100). The
     result is fp32.
     """
-    wk = _s2d_kernel_from_conv1(w9).transpose(0, 1).flip(-2, -1)
+    wk = _tconv6_phase_kernel(w9)
     out16 = _run_conv(F.conv2d, y.permute(0, 3, 1, 2), wk, dtype, _F32, padding=1)
     return _depth_to_space(out16.permute(0, 2, 3, 1))
-
-
-@functools.lru_cache(maxsize=None)
-def _tconv4_tap_index(device):
-    """For each of the 4 x 3 x 3 taps of the phase kernels, in order, its
-    tap of the flattened 5 x 5 kernel, or 25 (a zero) where the phase has
-    none; an index tensor made once per device."""
-    (lo, _) = same_pads(5, csts.STRIDE_3)
-    index = []
-    for p_h in range(2):
-        for p_w in range(2):
-            for a_h in range(3):
-                for a_w in range(3):
-                    (t_h, t_w) = (p_h + lo + 2 - 2 * a_h, p_w + lo + 2 - 2 * a_w)
-                    index.append(t_h * 5 + t_w if 0 <= t_h < 5 and 0 <= t_w < 5 else 25)
-    return torch.tensor(index, dtype=torch.int64, device=device)
-
-
-# The phase kernels of each tconv_4 kernel tensor, built at its first use
-# outside a capture (keyed by the tensor, rebuilt if it is written to).
-_tconv4_phase_kernels = WeakIdKeyDictionary()
-
-
-def _tconv4_phase_kernel(w5):
-    """The ``(in, out, 5, 5)`` stride-2 transposed-conv kernel as the OIHW
-    ``(4 * out, in, 3, 3)`` kernel of its 2 x 2 phase decomposition.
-
-    Output pixel ``2m + p`` of the TF-SAME transposed conv (pads (1, 2),
-    full output cropped at ``lo = 1``) sums input ``m + a - 1`` times tap
-    ``p + lo + 2 - 2a`` for ``a`` in 0..2 (where that tap exists), which
-    is a 3 x 3 stride-1 correlation with padding 1 per output phase; the
-    four phases are output channel blocks ``(p_h * 2 + p_w) * out``.
-    """
-    cached = _tconv4_phase_kernels.get(w5)
-    if cached is not None and cached[0] == w5._version:
-        return cached[1]
-    (nb_in, nb_out) = w5.shape[:2]
-    taps = torch.cat([w5.reshape(nb_in, nb_out, 25), w5.new_zeros((nb_in, nb_out, 1))], dim=2)
-    wk = taps[:, :, _tconv4_tap_index(w5.device)].reshape(nb_in, nb_out, 4, 3, 3)
-    wk = wk.permute(2, 1, 0, 3, 4).reshape(4 * nb_out, nb_in, 3, 3).contiguous()
-    # Inside a capture the kernel is computed only when the graph
-    # replays, so what is built there is not kept for eager calls.
-    if not (w5.is_cuda and torch.cuda.is_current_stream_capturing()):
-        _tconv4_phase_kernels[w5] = (w5._version, wk)
-    return wk
 
 
 def _tconv4_phases(y, w5, out_dtype=_F32, dtype=_BF16, round_input=True):

@@ -11,6 +11,11 @@ pinned at ``LOW_PROJECTION``. Growing the grid then moves that scalar
 (the newly live cells already hold the value the reference pads with),
 so a training step never waits for the host to learn a new shape.
 
+Every function also takes a leading model axis (the gamma ladder): ``(M,
+nb_maps, W)`` tables, ``(M,)`` extents, ``(M, nb_maps, n)`` samples and
+``(M, W)`` masks; gathers and reductions run over the last axis, and what
+a single model gets is unchanged.
+
 Table geometry: ``W = 2 * ppi * max_itvs + 1`` sampling points; the cell
 at index ``i`` sits at grid position ``(i - C) / ppi`` with the centre
 ``C = ppi * max_itvs``. A sample ``x`` falls into the linear piece whose
@@ -58,10 +63,11 @@ def _cell_offsets(nb_itvs_per_side, ppi, max_itvs):
 
 
 def active_mask(nb_itvs_per_side, ppi, max_itvs, dtype=torch.float32):
-    """1.0 on the live cells ``|i - C| <= ppi * nb_itvs``, 0.0 outside."""
+    """1.0 on the live cells ``|i - C| <= ppi * nb_itvs``, 0.0 outside:
+    ``(W,)`` for a scalar extent, ``(M, W)`` for ``(M,)`` extents."""
     nb_itvs_per_side = torch.as_tensor(nb_itvs_per_side)
     offsets = _cell_offsets(nb_itvs_per_side, ppi, max_itvs)
-    return (offsets <= ppi * nb_itvs_per_side).to(dtype)
+    return (offsets <= ppi * nb_itvs_per_side[..., None]).to(dtype)
 
 
 def init_density_table(nb_maps, ppi=csts.NB_POINTS_PER_INTERVAL,
@@ -91,14 +97,15 @@ def approximate_probability(samples, parameters, ppi, max_itvs):
     """Linear interpolation of each per-map pdf at the sample positions.
 
     ``samples``: ``(nb_maps, n)``, row i holds the samples of the ith
-    pdf; ``parameters``: ``(nb_maps, W)``. Reference
+    pdf; ``parameters``: ``(nb_maps, W)`` (each with a leading model
+    axis for M models). Reference
     ``tfutils.py:95-153``. The gradient with respect to ``parameters``
     is a scatter-add, which runs with atomics on the card: it is not
     bitwise repeatable there.
     """
     idx = index_linear_piece(samples, ppi, max_itvs)
-    left = torch.gather(parameters, 1, idx)
-    right = torch.gather(parameters, 1, idx + 1)
+    left = torch.gather(parameters, -1, idx)
+    right = torch.gather(parameters, -1, idx + 1)
     left_bound = torch.floor(ppi * samples) / ppi
     return (right - left) * (samples - left_bound) * ppi + left
 
@@ -106,7 +113,7 @@ def approximate_probability(samples, parameters, ppi, max_itvs):
 def differential_entropy(approximate_prob):
     """Per-map differential entropy estimate, ``mean(-log2 p)`` per row
     (reference ``tfutils.py:198-221``)."""
-    return torch.mean(-torch.log(approximate_prob) / math.log(2.0), dim=1)
+    return torch.mean(-torch.log(approximate_prob) / math.log(2.0), dim=-1)
 
 
 def approximate_entropy_per_map(approximate_prob, bin_widths):
@@ -120,19 +127,19 @@ def approximate_entropy_per_map(approximate_prob, bin_widths):
 
 def approximate_entropy(approximate_prob, bin_widths):
     """Cumulated approximate entropy of the quantised latents: the sum
-    over maps of the per-map entropies, clamped at 0."""
+    over maps of the per-map entropies, clamped at 0 (one a model)."""
     approx = approximate_entropy_per_map(approximate_prob, bin_widths)
-    return torch.sum(torch.clamp_min(approx, 0.0))
+    return torch.sum(torch.clamp_min(approx, 0.0), dim=-1)
 
 
 def loss_density_approximation(approximate_prob, parameters, mask, ppi):
     """Fitting loss of the piecewise-linear pdfs (a MISE surrogate):
     ``sum_i (-2 * mean_j p_ij + sum_k (mask_k * params_ik)^2 / ppi)``
-    (reference ``tfutils.py:511-552``). The mask keeps the quadratic
-    term on the live cells."""
-    mean_prob = torch.mean(approximate_prob, dim=1)
-    sum_sq = torch.sum(torch.square(parameters * mask), dim=1)
-    return torch.sum(-2.0 * mean_prob + sum_sq / ppi)
+    (reference ``tfutils.py:511-552``), one a model. The mask keeps the
+    quadratic term on the live cells."""
+    mean_prob = torch.mean(approximate_prob, dim=-1)
+    sum_sq = torch.sum(torch.square(parameters * mask[..., None, :]), dim=-1)
+    return torch.sum(-2.0 * mean_prob + sum_sq / ppi, dim=-1)
 
 
 def area_under_piecewise_linear_functions(parameters, nb_itvs_per_side, ppi, max_itvs):
@@ -141,16 +148,16 @@ def area_under_piecewise_linear_functions(parameters, nb_itvs_per_side, ppi, max
     half-weight end points."""
     nb_itvs_per_side = torch.as_tensor(nb_itvs_per_side, device=parameters.device)
     offsets = _cell_offsets(nb_itvs_per_side, ppi, max_itvs)
-    extent = ppi * nb_itvs_per_side
+    extent = ppi * nb_itvs_per_side[..., None]
     weights = torch.where(offsets == extent, 0.5, 1.0) * (offsets <= extent)
-    return torch.sum(parameters * weights[None, :], dim=1) / ppi
+    return torch.sum(parameters * weights[..., None, :], dim=-1) / ppi
 
 
 def expand_table(table, max_abs, ppi, max_itvs):
     """Grows the live extent when ``max_abs`` reaches its boundary.
 
-    ``max_abs`` (a scalar tensor) is the largest absolute latent plus
-    half the largest bin width. When ``max_abs >= nb_itvs`` the extent
+    ``max_abs`` (a scalar tensor, or one a model) is the largest absolute
+    latent plus half the largest bin width. When ``max_abs >= nb_itvs`` the extent
     becomes ``ceil(max_abs) + 1`` intervals per side (reference
     ``tfutils.py:223-299``), at most the capacity ``max_itvs``. Only
     the scalar moves, on the device.
@@ -165,5 +172,5 @@ def expand_table(table, max_abs, ppi, max_itvs):
 def project_density_parameters(parameters, mask):
     """Clamps live cells to ``>= LOW_PROJECTION`` and pins dead cells at
     it again (reference projection ``EntropyAutoencoder.py:290-293``)."""
-    return torch.where(mask > 0, torch.clamp_min(parameters, csts.LOW_PROJECTION),
-                       csts.LOW_PROJECTION)
+    return torch.where(mask[..., None, :] > 0,
+                       torch.clamp_min(parameters, csts.LOW_PROJECTION), csts.LOW_PROJECTION)

@@ -12,6 +12,12 @@ takes a ``(rows, 128)`` matrix: for a CPU tensor it runs the plain
 PyTorch version below; for a CUDA tensor it launches the kernel on the
 current stream or raises. Nothing falls back.
 
+The fp32 kernel also takes a model axis (:func:`gdn_stacked_2d`): the
+gamma ladder's M models side by side in one ``(rows, M, 128)`` tensor,
+the output of a convolution grouped over the models, with per-model
+gamma and beta; one launch serves every model (the counterpart of the
+JAX ladder's ``vmap`` of ``gdn_pallas_2d``).
+
 The fp32 kernel is differentiable: :class:`GdnFunction` runs it as the
 forward and computes the gradient in plain PyTorch (the reference has no
 backward kernel either: its training differentiates the plain einsum).
@@ -60,8 +66,11 @@ TILE_ROWS = (128, 64, 32)
 H100_SMS = 132
 
 LAUNCHES = {"gdn_f32": 0, "igdn_f32": 0, "gdn_bf16": 0, "igdn_bf16": 0,
-            "gdn_quantize_f32": 0, "igdn_quantize_f32": 0}
-LAUNCH_ROWS = collections.Counter()  # (variant, rows) -> launches
+            "gdn_quantize_f32": 0, "igdn_quantize_f32": 0,
+            "gdn_f32_stacked": 0, "igdn_f32_stacked": 0}
+# (variant, rows) -> launches; a stacked variant's rows are (rows a model,
+# models).
+LAUNCH_ROWS = collections.Counter()
 _lib = None
 _sm_counts = {}
 
@@ -120,10 +129,13 @@ def load_library():
     rows_inverse = [ctypes.c_int64, ctypes.c_int]
     (tile, stream) = ([ctypes.c_int], [ctypes.c_void_p])
     lib.aeic_gdn_f32.argtypes = pointers + rows_inverse + tile + stream
+    lib.aeic_gdn_f32_stacked.argtypes = (
+        pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_int] + tile + stream)
     lib.aeic_gdn_bf16.argtypes = pointers + rows_inverse + stream
     lib.aeic_gdn_quantize_f32.argtypes = (
         [ctypes.c_void_p] + pointers + rows_inverse + tile + stream)
-    for name in ("aeic_gdn_f32", "aeic_gdn_bf16", "aeic_gdn_quantize_f32"):
+    for name in ("aeic_gdn_f32", "aeic_gdn_f32_stacked", "aeic_gdn_bf16",
+                 "aeic_gdn_quantize_f32"):
         getattr(lib, name).restype = ctypes.c_int
     lib.aeic_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aeic_cuda_error_string.restype = ctypes.c_char_p
@@ -138,6 +150,14 @@ def gdn_2d_plain(x, gamma, beta, inverse=False):
     if x.dtype == torch.bfloat16:
         return gdn_lowp(x, gamma, beta, inverse=inverse)
     return (inverse_gdn if inverse else gdn)(x, gamma, beta)
+
+
+def gdn_stacked_2d_plain(x, gamma, beta, inverse=False):
+    """What :func:`gdn_stacked_2d` computes, in plain PyTorch: model
+    ``m``'s pool ``x[:, m]^2 @ gamma[m] + beta[m]`` as one batched
+    matmul, then GDN or IGDN as :func:`gdn_2d_plain` in fp32."""
+    pool = torch.matmul(torch.square(x).transpose(0, 1), gamma).transpose(0, 1) + beta
+    return x * (torch.sqrt(pool) if inverse else torch.rsqrt(pool))
 
 
 def gdn_quantize_2d_plain(x, gamma, beta, bin_widths, inverse=False):
@@ -268,6 +288,75 @@ class GdnFunction(torch.autograd.Function):
         return (grad_x, grad_gamma, grad_beta, None)
 
 
+def _check_stacked_operands(x, gamma, beta):
+    if x.dim() != 3 or x.shape[2] != CHANNELS:
+        raise ValueError(f"expected x of shape (rows, models, {CHANNELS}), "
+                         f"got {tuple(x.shape)}.")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the stacked GDN runs in fp32, got {x.dtype}.")
+    models = x.shape[1]
+    if (tuple(gamma.shape) != (models, CHANNELS, CHANNELS)
+            or tuple(beta.shape) != (models, CHANNELS)):
+        raise ValueError(f"expected gamma ({models}, 128, 128) and beta ({models}, 128), got "
+                         f"{tuple(gamma.shape)} and {tuple(beta.shape)}.")
+
+
+def _gdn_stacked_forward(x, gamma, beta, inverse):
+    """Plain version for a CPU tensor, one kernel launch for a CUDA one."""
+    if x.device.type == "cpu":
+        return gdn_stacked_2d_plain(x, gamma, beta, inverse)
+    (gamma, beta) = _cuda_operands(x, gamma, beta)
+    (rows, models) = (x.shape[0], x.shape[1])
+    out = torch.empty_like(x)
+    lib = load_library()
+    # The card's SMs are shared among the models: the tile height that
+    # gives the busiest SM the fewest rows of one model.
+    tile = tile_rows(rows, max(1, _sm_count(x.device) // models))
+    status = lib.aeic_gdn_f32_stacked(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                      out.data_ptr(), rows, models, int(inverse), tile,
+                                      torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_status(lib, status, "gdn_stacked_2d")
+    _count("igdn_f32_stacked" if inverse else "gdn_f32_stacked", (rows, models))
+    return out
+
+
+class GdnStackedFunction(torch.autograd.Function):
+    """Differentiable GDN/IGDN with a model axis, ``(rows, M, C)``.
+
+    Forward: the stacked kernel on the card, the plain version on the
+    CPU. Backward in plain PyTorch: :class:`GdnFunction`'s formulas for
+    each model, as batched matmuls over the model axis.
+    """
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, inverse):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+        return _gdn_stacked_forward(x, gamma, beta, inverse)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x, gamma, beta) = ctx.saved_tensors
+        squares = torch.square(x).transpose(0, 1)  # (M, rows, C)
+        pool = torch.matmul(squares, gamma).transpose(0, 1) + beta
+        if ctx.inverse:
+            scale = torch.sqrt(pool)
+            grad_pool = 0.5 * grad_out * x / scale
+        else:
+            scale = torch.rsqrt(pool)
+            grad_pool = -0.5 * grad_out * x * scale / pool
+        by_model = grad_pool.transpose(0, 1)  # (M, rows, C)
+        (grad_x, grad_gamma, grad_beta) = (None, None, None)
+        if ctx.needs_input_grad[0]:
+            grad_x = grad_out * scale + 2.0 * x * torch.matmul(
+                by_model, gamma.transpose(-1, -2)).transpose(0, 1)
+        if ctx.needs_input_grad[1]:
+            grad_gamma = torch.matmul(squares.transpose(-1, -2), by_model)
+        if ctx.needs_input_grad[2]:
+            grad_beta = grad_pool.sum(0)
+        return (grad_x, grad_gamma, grad_beta, None)
+
+
 def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -287,6 +376,18 @@ def gdn_2d(x, gamma, beta, inverse=False):
                             "with an operand that requires grad is refused.")
         return GdnFunction.apply(x, gamma, beta, inverse)
     return _gdn_2d_forward(x, gamma, beta, inverse)
+
+
+def gdn_stacked_2d(x, gamma, beta, inverse=False):
+    """GDN (or IGDN) of M models at once: ``x`` is ``(rows, M, 128)``
+    fp32 and C-contiguous, gamma ``(M, 128, 128)``, beta ``(M, 128)``;
+    ``out[:, m]`` is :func:`gdn_2d` of ``x[:, m]`` with model ``m``'s
+    parameters, bit for bit on the card. Differentiable through
+    :class:`GdnStackedFunction`."""
+    _check_stacked_operands(x, gamma, beta)
+    if _needs_grad(x, gamma, beta):
+        return GdnStackedFunction.apply(x, gamma, beta, inverse)
+    return _gdn_stacked_forward(x, gamma, beta, inverse)
 
 
 def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
@@ -333,3 +434,13 @@ def gdn_quantize_nhwc(x_nhwc, gamma, beta, bin_widths, inverse=False):
     shape = x_nhwc.shape
     return gdn_quantize_2d(x_nhwc.reshape(-1, shape[-1]), gamma, beta, bin_widths,
                            inverse).reshape(shape)
+
+
+def gdn_stacked_nhwc(x_nhwc, gamma, beta, inverse=False):
+    """NHWC wrapper of :func:`gdn_stacked_2d`: ``x_nhwc`` is ``(B, H, W,
+    M * 128)``, model ``m``'s maps at channels ``m * 128 ..``, which is
+    what a convolution grouped over the models gives. The reshape is a
+    view of a channels-last result."""
+    shape = x_nhwc.shape
+    x = x_nhwc.reshape(-1, gamma.shape[0], CHANNELS)
+    return gdn_stacked_2d(x, gamma, beta, inverse).reshape(shape)

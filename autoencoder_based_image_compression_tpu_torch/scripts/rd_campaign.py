@@ -163,7 +163,7 @@ def train_one(results_root, paths, bw_init, gamma, learn_bw, nb_epochs, batch_si
 def train_ladder_part(results_root, paths, gammas, nb_epochs, batch_size, idx_part,
                       device="cuda"):
     """One part of the whole fixed-bin-width ladder as one stacked ladder
-    state through ``cli/train_ladder`` (a loop over the models' slices a
+    state through ``cli/train_ladder`` (one program over every model a
     step). Returns its seconds, or None when every model had the part.
 
     Falls back to per-model training when the ladder is in a mixed
@@ -193,7 +193,7 @@ def train_ladder_part(results_root, paths, gammas, nb_epochs, batch_size, idx_pa
         "--device", device])
     seconds = time.time() - t0
     print(f"[campaign] ladder: part {idx_part} ({len(gammas)} models, one stacked ladder "
-          f"state through cli/train_ladder, a loop over slices) trained in {seconds:.1f} s")
+          f"state through cli/train_ladder, one program a step) trained in {seconds:.1f} s")
     return seconds
 
 
@@ -355,8 +355,9 @@ def build_parser():
     parser.add_argument("--ladder_vmap", action="store_true",
                         help="train the whole fixed-bw gamma family as one "
                              "stacked ladder state a part (cli.train_ladder: "
-                             "one loop over the models' slices a step) "
-                             "instead of sequential per-gamma runs")
+                             "one program over every model a step, convolutions "
+                             "grouped over the models, one stacked GDN launch a "
+                             "site) instead of sequential per-gamma runs")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or 'cpu'; "
                              "passed to every command the campaign chains")

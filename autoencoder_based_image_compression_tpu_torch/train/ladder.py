@@ -8,20 +8,22 @@ ladder axis, every mini-batch is shared across the ladder (every
 reference run consumes the same training set) and the uniform
 quantisation noise is drawn per model.
 
-A ladder step is a Python loop over the models: model ``k`` takes the
-single-model ``train_step`` of :func:`train.step.make_step_fns` at its
-own gamma (loss scale and learning-rate boundaries,
-``EntropyAutoencoder.py:235-243``) on slice ``k`` of every stacked leaf.
-The slices are contiguous views, so every GDN site still launches the
-hand-written kernel, which a batching transform over the models could
-not do. Stacking the seven states again after a step copies them once
-(under 1 % of the step on an H100). Nothing in a step reads a value back
-to the host, so on the card an epoch is the replays of one captured
-ladder step (``train/epoch_graph.py``, the counterpart of the JAX
-ladder's scanned epoch); on the CPU, and for a sharded ladder, it is
-the loop of ladder steps. The learning
-rate is ``LR_EAE`` times 0.1 from each boundary on
-(``train.state.learning_rate``).
+A ladder step is one program over all the models, the counterpart of the
+JAX ladder's ``vmap`` of the single-model step. The models' maps sit
+side by side in the channels (``models/conv_eae.py::encode_stacked``,
+``decode_stacked``): every convolution is grouped over the models (the
+first one is one conv with M * 128 outputs of the shared batch), every
+GDN site is one launch of the stacked fp32 kernel, and the density
+model, the projections and Adam run once over the stacked leaves. The
+loss is the sum over the models of each model's ``rec_error + gamma_k *
+approx_entropy + weight_decay`` (``EntropyAutoencoder.py:308-313``): the
+models share no parameter, so one backward pass gives each its own
+gradient. The learning rate is ``LR_EAE`` times 0.1 from each of the
+model's gamma-keyed boundaries on (``train.state.learning_rate``, the
+JAX ladder's ``_lr``). Nothing in a step reads a value back to the
+host, so on the card an epoch is the replays of one captured ladder
+step (``train/epoch_graph.py``, the counterpart of the JAX ladder's
+scanned epoch); on the CPU it is the loop of ladder steps.
 
 The ladder family is the fixed-bin-width architecture
 (``learn_bin_widths=False``): the bin widths stay at their init.
@@ -31,16 +33,24 @@ The ladder family is the fixed-bin-width architecture
 evaluation consume ladder-trained models unchanged.
 
 ``shard_ladder_state`` spreads the models over a mesh axis: each shard
-holds a contiguous run of models and its ladder step is the same loop
-over its own models only, with no communication (the models are
-independent). ``parallel.distributed.fetch_replicated`` stacks the
-ladder again.
+holds a contiguous block of models, a stacked ladder of its own, and runs
+the same stacked step with no communication (the models are
+independent); its epoch is graphed on its device as the unsharded
+ladder's is. ``parallel.distributed.fetch_replicated`` stacks the ladder
+again.
 
 **Noise.** Where the reference takes a random key, these functions take
-``noise``: a ``torch.Generator`` on the state's device (drawn from per
-model, in model order, density phase first), or the noise itself, one
-entry per model: a tensor for ``training_fct`` and ``evaluation``, a
-pair ``(noise_fct, noise_eae)`` for ``train_step``.
+``noise``: a ``torch.Generator`` on the state's device, or the noise
+itself, one entry per model (a tensor of the latents' shape for
+``training_fct`` and ``evaluation``, a pair ``(noise_fct, noise_eae)``
+for ``train_step``). Given per model, it is stacked and each model gets
+its own entry. From a generator, each phase draws ``(M, *latent)`` at
+once, model ``m``'s noise being entry ``m``, the density phase first;
+this is not the order of the loop over single models that the ladder was
+before (each model's two phases in turn), so a generator's numbers land
+on other models and phases than they did there. A sharded ladder's epoch
+runs block after block (block ``i``'s whole epoch, then block ``i + 1``'s),
+eagerly or graphed, so blocks that share a generator draw in that order.
 """
 
 from typing import Dict, NamedTuple
@@ -48,16 +58,19 @@ from typing import Dict, NamedTuple
 import torch
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
+from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+from autoencoder_based_image_compression_tpu_torch.ops import density as dens
 from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import GraphedEpoch
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     TrainState,
+    adam_update,
     init_train_state,
+    ladder_boundaries,
     map_state,
 )
 from autoencoder_based_image_compression_tpu_torch.train.step import (
-    _rd_loss,
+    _project_gdn,
     epoch_over_rows,
-    make_step_fns,
 )
 
 
@@ -67,14 +80,6 @@ def ladder_stack_states(states):
     :func:`ladder_slice_state` (used to resume a ladder part from the
     per-model checkpoints of the previous part)."""
     return map_state(lambda *leaves: torch.stack(leaves, dim=0), *states)
-
-
-def _unstack(ladder_states):
-    """The ladder's entries as single-model states whose leaves are views
-    of the stacked leaves (contiguous and 16-byte aligned, as the kernel
-    wrappers require)."""
-    nb_models = ladder_states.step.shape[0]
-    return [map_state(lambda leaf, k=k: leaf[k], ladder_states) for k in range(nb_models)]
 
 
 def ladder_slice_state(ladder_states, idx, gamma=None):
@@ -157,12 +162,162 @@ def shard_ladder_state(ladder_states, mesh, axis="data"):
 
 
 def _per_model(noise, nb_models):
-    """``noise`` as one entry per model."""
-    if isinstance(noise, torch.Generator):
-        return [noise] * nb_models
-    if len(noise) != nb_models:
+    """``noise`` checked to be a generator or one entry per model."""
+    if not isinstance(noise, torch.Generator) and len(noise) != nb_models:
         raise ValueError(f"{len(noise)} noises for {nb_models} models.")
-    return list(noise)
+    return noise
+
+
+def _stacked_noise(noise, y):
+    """Uniform noise in [-0.5, 0.5) laid out as the stacked latents ``y``
+    (``(B, h, w, M * 128)``): drawn as ``(M, B, h, w, 128)`` from a
+    generator, or the M given tensors stacked."""
+    (batch, height, width, channels) = y.shape
+    nb_models = channels // csts.NB_MAPS_3
+    if isinstance(noise, torch.Generator):
+        drawn = torch.rand((nb_models, batch, height, width, csts.NB_MAPS_3), generator=noise,
+                           device=y.device, dtype=y.dtype) - 0.5
+    else:
+        drawn = torch.stack([n.to(device=y.device) for n in noise])
+        if drawn.shape[1:] != (batch, height, width, csts.NB_MAPS_3):
+            raise ValueError(f"noise of shape {tuple(drawn.shape[1:])} for latents of shape "
+                             f"{(batch, height, width, csts.NB_MAPS_3)}.")
+    return drawn.permute(1, 2, 3, 0, 4).reshape(y.shape)
+
+
+def _flatten_maps_stacked(y_tilde, nb_models):
+    """(B, h, w, M * C) -> (M, C, B*h*w): row ``(m, i)`` gathers every
+    sample of model ``m``'s map ``i`` (``train.step._flatten_maps`` per
+    model)."""
+    return y_tilde.reshape(-1, nb_models, y_tilde.shape[-1] // nb_models).permute(1, 2, 0)
+
+
+def _noisy_latents_stacked(states, visible_units, noise):
+    y = conv_eae.encode_stacked(states.params, visible_units.to(torch.float32), False)
+    return (y, y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y))
+
+
+def _expanded_tables(states, y, ppi, max_itvs):
+    """The density tables grown to hold each model's latents, and their
+    masks; each model's largest latent stays on the device."""
+    nb_models = states.step.shape[0]
+    max_abs = (y.reshape(-1, nb_models, y.shape[-1] // nb_models).abs().amax(dim=(0, 2))
+               + 0.5 * states.bin_widths.amax(dim=-1))
+    table = dens.expand_table(states.density, max_abs, ppi, max_itvs)
+    return (table, dens.active_mask(table.nb_itvs_per_side, ppi, max_itvs))
+
+
+def _density_phase_stacked(states, visible_units, noise, ppi, max_itvs):
+    """``train.step._density_phase`` of every model at once: the
+    expansion, one SGD step on the sum of the models' density losses
+    (each model's table gets its own gradient) and the projection."""
+    nb_models = states.step.shape[0]
+    with torch.no_grad():
+        (y, y_tilde) = _noisy_latents_stacked(states, visible_units, noise)
+        (table, mask) = _expanded_tables(states, y, ppi, max_itvs)
+        samples = _flatten_maps_stacked(y_tilde, nb_models)
+    parameters = table.parameters.detach().requires_grad_(True)
+    with torch.enable_grad():
+        prob = dens.approximate_probability(samples, parameters, ppi, max_itvs)
+        loss = torch.sum(dens.loss_density_approximation(prob, parameters, mask, ppi))
+    (grads,) = torch.autograd.grad(loss, parameters)
+    with torch.no_grad():
+        new_parameters = dens.project_density_parameters(
+            table.parameters - csts.LR_FCT * grads, mask)
+    return states._replace(density=table._replace(parameters=new_parameters))
+
+
+def _rd_loss_stacked(params, states, visible_units, noise, gammas, ppi, max_itvs):
+    """``train.step._rd_loss`` of every model at once: ``(sum over the
+    models of rec_error + gamma * approx_entropy + weight_decay,
+    (rec_errors, approx_entropies))``, the last two ``(M,)``."""
+    visible_units = visible_units.to(torch.float32)
+    nb_models = states.step.shape[0]
+    y = conv_eae.encode_stacked(params, visible_units, False)
+    y_tilde = y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y)
+    prob = dens.approximate_probability(_flatten_maps_stacked(y_tilde, nb_models),
+                                        states.density.parameters, ppi, max_itvs)
+    approx_entropy = dens.approximate_entropy(prob, states.bin_widths)
+    reconstruction = conv_eae.decode_stacked(params, y_tilde, False)
+    rec_error = torch.mean(torch.sum(torch.square(visible_units - reconstruction), dim=(1, 2)),
+                           dim=0)
+    weight_decay = csts.WEIGHT_DECAY_P * conv_eae.weight_l2_norms(params)
+    loss = rec_error + gammas * approx_entropy + weight_decay
+    return (torch.sum(loss), (rec_error, approx_entropy))
+
+
+class _StackedLadder:
+    """The stacked step functions of the models ``gammas``: a whole
+    ladder, or one block of a sharded one."""
+
+    def __init__(self, gammas, ppi, max_itvs):
+        (self.gammas, self.ppi, self.max_itvs) = (list(gammas), ppi, max_itvs)
+        self._constants = {}
+        self.graphed_epoch = GraphedEpoch(self.train_step)
+
+    def constants(self, device):
+        """``(gammas, learning-rate boundaries)`` as tensors on ``device``,
+        made once per device (a capture refuses a host-to-device copy,
+        and the warm-up step before it makes them)."""
+        if device not in self._constants:
+            self._constants[device] = (
+                torch.tensor(self.gammas, dtype=torch.float32, device=device),
+                ladder_boundaries(self.gammas, device))
+        return self._constants[device]
+
+    def training_fct(self, states, batch, noise):
+        return _density_phase_stacked(states, batch, _per_model(noise, len(self.gammas)),
+                                      self.ppi, self.max_itvs)
+
+    def training_eae(self, states, batch, noise):
+        """One Adam step of every model on the sum of their losses, then
+        the GDN projections (``train.step._eae_bw_phase`` with fixed bin
+        widths)."""
+        (gammas, boundaries) = self.constants(states.step.device)
+        params = {name: value.detach().requires_grad_(True)
+                  for (name, value) in states.params.items()}
+        with torch.enable_grad():
+            (loss, _) = _rd_loss_stacked(params, states, batch, noise, gammas, self.ppi,
+                                         self.max_itvs)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[name] for name in names])
+        with torch.no_grad():
+            (new_params, opt_eae) = adam_update(dict(zip(names, grads)), states.opt_eae,
+                                                states.params, boundaries)
+            new_params = _project_gdn(new_params, False)
+        return states._replace(params=new_params, opt_eae=opt_eae, step=states.step + 1)
+
+    def train_step(self, states, batch, noise):
+        # One generator serves both phases in turn, the density phase first.
+        if isinstance(noise, torch.Generator):
+            (noise_fct, noise_eae) = (noise, noise)
+        else:
+            _per_model(noise, len(self.gammas))
+            (noise_fct, noise_eae) = ([pair[0] for pair in noise], [pair[1] for pair in noise])
+        states = self.training_fct(states, batch, noise_fct)
+        return self.training_eae(states, batch, noise_eae)
+
+    def train_epoch(self, states, dataset, rows, noise):
+        if states.step.is_cuda:
+            return self.graphed_epoch(states, dataset, rows, noise)
+        return epoch_over_rows(self.train_step, states, dataset, rows, noise)
+
+    @torch.no_grad()
+    def evaluation(self, states, batch, noise):
+        (gammas, _) = self.constants(states.step.device)
+        (_, indicators) = _rd_loss_stacked(states.params, states, batch,
+                                           _per_model(noise, len(self.gammas)), gammas,
+                                           self.ppi, self.max_itvs)
+        return indicators
+
+
+def _block_noise(noise, models, device):
+    """Block ``models`` (a slice) of one per-model noise, on ``device``; a
+    generator as it is."""
+    if isinstance(noise, torch.Generator):
+        return noise
+    return [tuple(t.to(device) for t in n) if isinstance(n, (tuple, list)) else n.to(device)
+            for n in noise[models]]
 
 
 def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
@@ -171,50 +326,55 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
 
     Returns ``{"training_fct", "train_step", "train_epoch"}``, the
     ladder counterparts of :func:`train.step.make_step_fns`'s entries
-    (fixed-bin-width architecture). Each takes and returns the stacked
-    state, or the :class:`LadderShards` of :func:`shard_ladder_state`
-    (each block runs the loop over its own models).
+    (fixed-bin-width architecture), each one program over the stacked
+    state. Each takes and returns the stacked state, or the
+    :class:`LadderShards` of :func:`shard_ladder_state` (each block runs
+    the stacked functions of its own models). ``train_epoch`` on a CUDA
+    state replays one captured ladder step a batch, a block's on that
+    block's device for a sharded ladder, and loops on the CPU.
     """
-    singles = [make_step_fns(gamma, False, ppi=ppi, max_itvs=max_itvs) for gamma in gammas]
+    whole = _StackedLadder(gammas, ppi, max_itvs)
+    blocks = {}
 
-    def over_models(name):
-        def loop(models, states, batch, noises):
-            return ladder_stack_states([
-                fns[name](state, batch, noise_k)
-                for (fns, state, noise_k) in zip(models, _unstack(states), noises)])
+    def block_fns(states, i):
+        """Block ``i``'s stacked functions and its models, as a slice."""
+        per = states.per_shard
+        if (i, per) not in blocks:
+            blocks[(i, per)] = _StackedLadder(gammas[i * per:(i + 1) * per], ppi, max_itvs)
+        return (blocks[(i, per)], slice(i * per, (i + 1) * per))
 
+    def over_blocks(name):
         def fn(states, batch, noise):
-            noises = _per_model(noise, len(singles))
+            _per_model(noise, len(gammas))
             if not isinstance(states, LadderShards):
-                return loop(singles, states, batch, noises)
-            per = states.per_shard
+                return getattr(whole, name)(states, batch, noise)
 
             def block_step(i, block):
+                (fns, models) = block_fns(states, i)
                 device = block.step.device
-                block_noises = [n if isinstance(n, torch.Generator) else (
-                    tuple(t.to(device) for t in n) if isinstance(n, (tuple, list))
-                    else n.to(device)) for n in noises[i * per:(i + 1) * per]]
-                return loop(singles[i * per:(i + 1) * per], block, batch.to(device),
-                            block_noises)
+                return getattr(fns, name)(block, batch.to(device),
+                                          _block_noise(noise, models, device))
 
             return states.map_blocks(block_step)
         return fn
 
-    training_fct = over_models("training_fct")
-    train_step = over_models("train_step")
-
-    graphed_epoch = GraphedEpoch(train_step)
-
     def train_epoch(states, dataset, rows, noise):
-        # A sharded ladder's blocks may sit on several devices: its epoch
-        # stays the eager loop.
-        if not isinstance(states, LadderShards) and states.step.is_cuda:
-            return graphed_epoch(states, dataset, rows, noise)
-        return epoch_over_rows(train_step, states, dataset, rows, noise)
+        if not isinstance(states, LadderShards):
+            return whole.train_epoch(states, dataset, rows, noise)
+
+        # Block after block, each block's whole epoch on its device.
+        def block_epoch(i, block):
+            (fns, models) = block_fns(states, i)
+            device = block.step.device
+            block_noise = noise if isinstance(noise, torch.Generator) else [
+                _block_noise(batch_noise, models, device) for batch_noise in noise]
+            return fns.train_epoch(block, dataset.to(device), rows, block_noise)
+
+        return states.map_blocks(block_epoch)
 
     return {
-        "training_fct": training_fct,
-        "train_step": train_step,
+        "training_fct": over_blocks("training_fct"),
+        "train_step": over_blocks("train_step"),
         "train_epoch": train_epoch,
     }
 
@@ -226,16 +386,5 @@ def make_ladder_eval_fn(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     Returns ``evaluation(states, batch, noise) -> (rec_errors,
     approx_entropies)`` of shape (K,) each (the noise-perturbed RD-loss
     components, reference ``EntropyAutoencoder.py:542-589``'s core
-    indicators over the ladder)."""
-
-    @torch.no_grad()
-    def evaluation(states, batch, noise):
-        models = _unstack(states)
-        pairs = [_rd_loss(state.params, state.bin_widths, batch, noise_k, state.density,
-                          gamma, False, ppi, max_itvs)[1]
-                 for (state, gamma, noise_k) in zip(models, gammas,
-                                                    _per_model(noise, len(models)))]
-        return (torch.stack([rec for (rec, _) in pairs]),
-                torch.stack([ent for (_, ent) in pairs]))
-
-    return evaluation
+    indicators over the ladder), one pass over every model."""
+    return _StackedLadder(gammas, ppi, max_itvs).evaluation

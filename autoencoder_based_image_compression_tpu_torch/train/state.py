@@ -111,14 +111,34 @@ def init_adam(params):
 
 
 def learning_rate(gamma_scaling, count):
-    """Adam's learning rate at ``count`` updates, as a float32 scalar
-    tensor on ``count``'s device: ``LR_EAE``, times 0.1 from each of the
-    two gamma-keyed boundaries on (``count >= boundary``; reference
-    ``EntropyAutoencoder.py:235-243``)."""
-    lr = torch.full((), csts.LR_EAE, dtype=torch.float32, device=count.device)
-    for boundary in csts.lr_boundaries(gamma_scaling):
+    """Adam's learning rate at ``count`` updates, as a float32 tensor on
+    ``count``'s device: ``LR_EAE``, times 0.1 from each of the two
+    gamma-keyed boundaries on (``count >= boundary``; reference
+    ``EntropyAutoencoder.py:235-243``).
+
+    ``gamma_scaling`` is a number, with a scalar ``count``; or, for M
+    models at once (the JAX ladder's ``_lr``, ``train/ladder.py:86-89``),
+    an ``(M, 2)`` tensor of each model's boundaries
+    (:func:`ladder_boundaries`) with an ``(M,)`` count, giving ``(M,)``
+    rates, each what the number form gives for that model.
+    """
+    if torch.is_tensor(gamma_scaling):
+        boundaries = gamma_scaling.unbind(-1)
+        shape = count.shape
+    else:
+        boundaries = csts.lr_boundaries(gamma_scaling)
+        shape = ()
+    lr = torch.full(shape, csts.LR_EAE, dtype=torch.float32, device=count.device)
+    for boundary in boundaries:
         lr = torch.where(count >= boundary, LR_DECAY * lr, lr)
     return lr
+
+
+def ladder_boundaries(gammas, device):
+    """The ``(M, 2)`` float32 tensor of each gamma's learning-rate
+    boundaries, on ``device``, for :func:`learning_rate`."""
+    return torch.tensor([csts.lr_boundaries(gamma) for gamma in gammas], dtype=torch.float32,
+                        device=device)
 
 
 def current_lr(gamma_scaling, step):
@@ -136,18 +156,26 @@ def adam_update(grads, opt_state, params, gamma_scaling):
 
     ``mu = 0.9 mu + 0.1 g``; ``nu = 0.999 nu + 0.001 g^2``; both divided
     by ``1 - decay^(count + 1)``; the parameters move by
-    ``-lr(count) * mu_hat / (sqrt(nu_hat) + 1e-8)``.
+    ``-lr(count) * mu_hat / (sqrt(nu_hat) + 1e-8)``. For M stacked
+    models, ``gamma_scaling`` is their ``(M, 2)`` boundaries and the
+    count, the corrections and the rate are ``(M,)``, each applied to
+    its model's slice of every leaf.
     """
     count_inc = opt_state.count + 1
     lr = learning_rate(gamma_scaling, opt_state.count)
     correction_1 = 1.0 - ADAM_B1 ** count_inc.to(torch.float32)
     correction_2 = 1.0 - ADAM_B2 ** count_inc.to(torch.float32)
+
+    def per_model(value, leaf):  # (M,) -> (M, 1, ...) against an (M, ...) leaf
+        return value.reshape(value.shape + (1,) * (leaf.dim() - value.dim()))
+
     (new_params, new_mu, new_nu) = ({}, {}, {})
     for (name, grad) in grads.items():
         mu = (1 - ADAM_B1) * grad + ADAM_B1 * opt_state.mu[name]
         nu = (1 - ADAM_B2) * torch.square(grad) + ADAM_B2 * opt_state.nu[name]
-        update = (mu / correction_1) / (torch.sqrt(nu / correction_2) + ADAM_EPS)
-        new_params[name] = params[name] - lr * update
+        update = (mu / per_model(correction_1, grad)) / (
+            torch.sqrt(nu / per_model(correction_2, grad)) + ADAM_EPS)
+        new_params[name] = params[name] - per_model(lr, grad) * update
         (new_mu[name], new_nu[name]) = (mu, nu)
     return (new_params, AdamState(count=count_inc, mu=new_mu, nu=new_nu))
 

@@ -121,7 +121,7 @@ def _project_gdn(params, learn_bin_widths):
     for i in indices:
         new[f"beta_{i}"] = torch.clamp_min(new[f"beta_{i}"], csts.MIN_GAMMA_BETA)
         gamma = torch.clamp_min(new[f"gamma_{i}"], csts.MIN_GAMMA_BETA)
-        new[f"gamma_{i}"] = 0.5 * (gamma + gamma.t())
+        new[f"gamma_{i}"] = 0.5 * (gamma + gamma.transpose(-1, -2))
     return new
 
 

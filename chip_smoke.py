@@ -17,8 +17,12 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    10 x 256 x 256 batch: rows 40,960, 10,240 and 2,560 for GDN/IGDN in
    fp32; one of two shards of the serving batch, or the tooling's two images:
    rows 49,152, 12,288 and 3,072; the tooling's 16 x 16 probe latent: rows
-   4,096, 1,024 and 256 for IGDN in fp32), and at ragged row counts; then
-   the gradient of the fp32 kernel's ``GdnFunction`` against
+   4,096, 1,024 and 256 for IGDN in fp32), and at ragged row counts; the
+   stacked fp32 kernel (the gamma ladder's GDN sites, one launch for all
+   its models) at 7 x 40,960, 7 x 10,240 and 7 x 2,560 rows, a sharded
+   ladder's block of one model (1 x 2,560) and a ragged 7 x 40,997, each
+   model of it equal to the single-model kernel on the same rows bit for
+   bit; then the gradient of the fp32 kernel's ``GdnFunction`` against
    autograd through the plain version;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
@@ -26,6 +30,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    then the decoder's precision mixes at multipliers 1, 4 and 10 (the
    gate table) and the device's own time per batch; fails if bf16w+'s
    worst image is more than 0.05 dB below fp32 at any of the three;
+   then three fp32 decodes of the same symbols, which must be equal (the
+   transposed convs as forward convs into their output phases), and the
+   fp32 decode's ms a batch of 4 and of 24 in that form and as
+   ``conv_transpose2d``;
 4. the fixed-bin-width ``roundtrip_batched`` (fused GDN+quantise);
 5. training at full width, both architectures (learned and fixed bin
    widths), on synthetic 256 x 256 crops at batch 10: a fresh state, one
@@ -51,14 +59,21 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 6. the gamma ladder at full width: ``cli/train_ladder`` trains the seven
    models of ``GAMMAS_DEFAULT`` on shared batches of 10 synthetic
    256 x 256 crops (part 0: one pre-fit epoch and one epoch of 12 ladder
-   steps; part 1 resumed from part 0's seven checkpoints). Fails unless
-   every model's density loss falls over the pre-fit and its
-   rate-distortion loss over the steps, the models differ from each
-   other, the bin widths stay put, a ladder ``train_step`` launches
-   42 + 21 kernels, a ladder model equals a single-model run on the same
-   batches and noise, part 0 refuses to be retrained and part 1 resumes
-   at part 0's step. Prints ms per ladder ``train_step`` beside seven
-   single-model steps, ladder-steps/s and the device's busy share. Then
+   steps; part 1 resumed from part 0's seven checkpoints), one program
+   over the seven models a step. Fails unless every model's density loss
+   falls over the pre-fit and its rate-distortion loss over the steps,
+   the models differ from each other, the bin widths stay put, a ladder
+   ``train_step`` launches the stacked kernel 6 + 3 times (one launch a
+   GDN site for all seven models), one stacked step is within the JAX
+   package's bounds of seven single-model steps on the same batch and
+   noise (each parameter within 5e-4, more than 99.5 % of a leaf within
+   2e-6, the density table within rtol 5e-4 / atol 1e-4, the grids
+   equal) and three within Adam's bound, part 0 refuses to be retrained
+   and part 1 resumes at part 0's step. Prints ms per ladder
+   ``train_step`` beside seven single-model steps, ladder-steps/s, the
+   device's busy share and the kernels of a step in a profiler trace
+   (cuDNN, GDN, the rest), and every conv site's fprop / dgrad / wgrad
+   grouped over the models against seven convs on channel slices. Then
    the ladder's graphed epoch against its eager loop, as in phase 5;
 7. the rate-distortion study on the committed trained models and the 24
    images of ``synthetic_kodak(seed=14)``, through ``eval/rd_sweep``: the
@@ -105,7 +120,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    (c) ``PipelinedCompressor`` (fp32 and "bf16w+") and ``stream_roundtrip``
    over a two-shard data mesh on the 24 images: bit counts equal to the
    mesh-less path; (d) a ladder step of the seven models spread over a
-   seven-shard mesh against the unsharded ladder step; (e) ``cli/benchmark
+   seven-shard mesh against the unsharded ladder step, then the sharded
+   ladder's graphed epoch (one captured step a block, replayed on the
+   block's device, block after block) against the blocks' eager loops in
+   that order, as in phase 5; (e) ``cli/benchmark
    scaling`` and ``dryrun_multichip(2)``. Then every kernel against its
    plain version at each row count these paths launched it at;
 10. the SVHN side at full width (3072-300-200, the VAE 3072-300-25) on
@@ -145,7 +163,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    multiplier, a second call trains and launches nothing, and a third
    call after one ``model_2.json`` is marked interrupted retrains that
    model alone; seconds per stage, the training stage through graphed
-   epochs (one capture a part); (b) ``scripts/stability_study``:
+   epochs (one capture a part), the ladder's parts one stacked program a
+   step; (b) ``scripts/stability_study``:
    ``average_gamma_params`` over (a)'s parts equal bit for bit to the
    float64 mean of the loaded checkpoints cast to float32, then the
    evaluation of the committed ``results/eae_avg/`` models held against
@@ -270,7 +289,8 @@ PROBE_SHAPES = ("A/4", "A/8", "A/16")
 STATS_SHAPES = ("E/4", "E/8", "E/16")
 PARITY_SHAPES = ("P/4", "P/8", "P/16")
 # The kernels line's shapes of a training path and of an RD study.
-TRAINING_ENTRIES = {"gdn_f32": TRAIN_SHAPES, "igdn_f32": TRAIN_SHAPES}
+STACKED_ENTRIES = {"gdn_f32_stacked": TRAIN_SHAPES, "igdn_f32_stacked": TRAIN_SHAPES}
+TRAINING_ENTRIES = {"gdn_f32": TRAIN_SHAPES, "igdn_f32": TRAIN_SHAPES, **STACKED_ENTRIES}
 STUDY_ENTRIES = {"gdn_f32": SERVE_SHAPES, "igdn_f32": SERVE_SHAPES}
 # The distributed layer: sharded steps held against unsharded ones, the
 # height-sharded round trip's gate, and the two image sets of the gate's
@@ -302,6 +322,15 @@ TRAIN_SITES = {
     False: 2 * (("gdn_f32", "T/4"), ("gdn_f32", "T/8"), ("gdn_f32", "T/16"))
     + (("igdn_f32", "T/16"), ("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
 }
+# The stacked fp32 kernel (a ladder step's six GDN sites, one launch each
+# for every model): its single-model variant and inverse; the ladder's
+# models.
+STACKED_VARIANTS = {"gdn_f32_stacked": ("gdn_f32", False),
+                    "igdn_f32_stacked": ("igdn_f32", True)}
+STACKED_MODELS = 7
+# Its timed shapes: a ladder step's rows for the seven models, and a
+# sharded ladder's block of one model.
+STACKED_SHAPES = TRAIN_SHAPES + ("T/16 x1",)
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
@@ -389,14 +418,15 @@ def time_ms(fn, inputs, launches=24, repeats=7):
     return (replayed, eager)
 
 
-def bound(rows, dtype, quantize):
+def bound(rows, dtype, quantize, models=1):
     """Least time on the card (ms) for the kernel's work and what sets it:
     each input read once and the output written once at the HBM rate, or
-    the 2 * rows * 128^2 flops of the pool at the peak rate of their type."""
-    nbytes = 2 * rows * 128 * (4 if dtype == torch.float32 else 2)
-    nbytes += (128 * 128 + 128 + (128 if quantize else 0)) * 4
+    the 2 * rows * 128^2 flops of the pool at the peak rate of their type
+    (``rows`` a model, ``models`` models for the stacked kernel)."""
+    nbytes = 2 * rows * models * 128 * (4 if dtype == torch.float32 else 2)
+    nbytes += models * (128 * 128 + 128 + (128 if quantize else 0)) * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2.0 * rows * 128 * 128 / PEAK_FLOPS[dtype]
+    t_ops = 2.0 * rows * models * 128 * 128 / PEAK_FLOPS[dtype]
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -482,6 +512,81 @@ def phase_kernels():
                                           bound_by=bound_by)
             print(f"{head}; tile {gk.tile_rows(rows) if dtype == torch.float32 else 16}; "
                   f"kernel {ms:.4f} ms replayed, {ms_eager:.4f} ms eager, "
+                  f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+                  f"share of bound {100 * bound_ms / ms:.0f} %")
+    return results
+
+
+def stacked_inputs(name, rows, models, seed):
+    """``(x, gamma, beta)`` of the stacked kernel: ``models`` models of
+    ``rows`` rows, each model with the trained site's gamma and beta
+    scaled by its own factor, so that a model reading another's
+    parameters shows."""
+    (single, _) = STACKED_VARIANTS[name]
+    (_, inverse, _, (exp_dir, index), _, _) = VARIANTS[single]
+    with numpy.load(os.path.join(exp_dir, "params_trained.npz")) as data:
+        gamma = data[f"param:gamma_{index}"].astype(numpy.float32)
+        beta = data[f"param:beta_{index}"].astype(numpy.float32)
+    scales = (1.0 + 0.25 * numpy.arange(models, dtype=numpy.float32))
+    rng = numpy.random.default_rng(seed)
+    x = (4.0 * rng.normal(size=(rows, models, 128))).astype(numpy.float32)
+    cuda = lambda a: torch.from_numpy(numpy.ascontiguousarray(a)).cuda()  # noqa: E731
+    return (cuda(x), cuda(scales[:, None, None] * gamma[None]), cuda(scales[:, None] * beta[None]))
+
+
+def check_stacked(name, rows, models, seed):
+    """The stacked kernel against its plain twin (fp32 tolerance) and
+    models 0 and M - 1 of it against the single-model kernel on the same
+    rows, bit for bit. Returns ``(inputs, max_abs_err)``."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    (_, inverse) = STACKED_VARIANTS[name]
+    (x, gamma, beta) = stacked_inputs(name, rows, models, seed)
+    got = gk.gdn_stacked_2d(x, gamma, beta, inverse=inverse)
+    expected = gk.gdn_stacked_2d_plain(x, gamma, beta, inverse=inverse)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} at {models} x {rows} rows: non-finite output")
+    torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-6)
+    for m in sorted({0, models - 1}):
+        single = gk.gdn_2d(x[:, m].contiguous(), gamma[m], beta[m], inverse=inverse)
+        if not torch.equal(got[:, m], single):
+            raise AssertionError(f"{name} at {models} x {rows} rows: model {m} is not the "
+                                 "single-model kernel's result bit for bit")
+    return ((x, gamma, beta), float((got - expected).abs().max()))
+
+
+def phase_stacked_kernels():
+    """The stacked fp32 kernel (the ladder's six GDN sites) at a ladder
+    step's rows, seven models, and a ragged count; returns errors and
+    times as :func:`phase_kernels` does."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    results = {}
+    for (seed, name) in enumerate(STACKED_VARIANTS):
+        inverse = STACKED_VARIANTS[name][1]
+        for shape in ("ragged",) + STACKED_SHAPES:
+            rows = ROWS["T/4"] + RAGGED_EXTRA if shape == "ragged" else ROWS[shape.split()[0]]
+            models = 1 if shape.endswith("x1") else STACKED_MODELS
+            ((x, gamma, beta), max_abs) = check_stacked(name, rows, models, 70 + seed)
+            head = (f"  {name:17s} rows {models} x {rows:6d} ({shape:7s}): max abs err "
+                    f"{max_abs:.3e} [rtol 1e-5, atol 1e-6]; models "
+                    f"{sorted({0, models - 1})} equal to {STACKED_VARIANTS[name][0]} bit for bit")
+            if shape == "ragged":
+                print(head)
+                continue
+            nbytes = 2 * x.numel() * x.element_size()
+            inputs = [x] + [x.clone() for _ in range(TIMING_FOOTPRINT_BYTES // nbytes)]
+            (ms, ms_eager) = time_ms(
+                lambda t: gk.gdn_stacked_2d(t, gamma, beta, inverse=inverse), inputs)
+            (plain_ms, _) = time_ms(
+                lambda t: gk.gdn_stacked_2d_plain(t, gamma, beta, inverse=inverse), inputs)
+            (bound_ms, bound_by) = bound(rows, torch.float32, False, models)
+            results[(name, shape)] = dict(max_abs_err=max_abs, ms=ms, ms_eager=ms_eager,
+                                          plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by)
+            tile = gk.tile_rows(rows, max(1, gk.H100_SMS // models))
+            print(f"{head}; tile {tile}; kernel {ms:.4f} ms replayed, {ms_eager:.4f} ms eager, "
                   f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), "
                   f"share of bound {100 * bound_ms / ms:.0f} %")
     return results
@@ -576,8 +681,35 @@ def phase_serving(kernel_results):
     if not gate_probe.holds_gate(table[label]):
         raise AssertionError(f"bf16w+ ({label}) misses the {GATE_DB} dB gate: {table[label]}")
     print(f"  bf16w+ ({label}) holds the {GATE_DB} dB gate at x1, x4 and x10")
+    check_fp32_decode(params_gpu, bin_widths, images)
     return ({"serving bf16w+": runs["bf16w+"][2], "serving fp32": runs["fp32"][2]},
             table, runs["fp32"][0])
+
+
+def check_fp32_decode(params_gpu, bin_widths, images):
+    """The fp32 parity decode repeats its bits: two decodes of the same
+    symbols (a batch of the served images) are equal. Then its ms a batch
+    of 4 and of 24 with the transposed convs in their phase form (what
+    ``decode`` runs without grad) and as ``conv_transpose2d``."""
+    from autoencoder_based_image_compression_tpu_torch.eval import ladder_probe
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.quantization import quantize_per_map
+
+    with torch.no_grad():
+        batch = torch.from_numpy(images[:BATCH].astype(numpy.float32)).cuda()
+        latents = quantize_per_map(conv_eae.encode(params_gpu, batch, True),
+                                   torch.from_numpy(bin_widths).cuda())
+        decodes = [conv_eae.decode(params_gpu, latents, True) for _ in range(3)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(decodes[0], other) for other in decodes[1:]):
+        raise AssertionError("two fp32 decodes of the same symbols differ")
+    print(f"  fp32 decode of the same symbols, three times ({BATCH} images): equal bit for bit "
+          f"(torch.backends.cudnn.deterministic {torch.backends.cudnn.deterministic})")
+    for batch_size in (BATCH, BENCH_BATCH):
+        times = ladder_probe.decode_times(params_gpu, batch_size, HEIGHT, WIDTH)
+        print(f"  fp32 decode, batch of {batch_size}: " + "; ".join(
+            f"{form} {ms:.4f} ms ({'repeats its bits' if equal else 'does not repeat its bits'})"
+            for (form, (ms, equal)) in times.items()))
 
 
 def device_times(compressor, batch_uint8, coder_s, kernel_results, sites, repeats=5):
@@ -1054,13 +1186,16 @@ def check_rd_gradient(state, batch, noise, learn_bin_widths, ppi, max_itvs):
 
 def traced_device_ms(run, steps, top=6):
     """Device time of one call of ``run`` from a profiler trace of
-    ``steps`` calls: the kernels' own durations summed (the host-side
-    rows of the trace, which carry the same time again, left out), and
-    the ``top`` kernels by time as ``(name, ms a call, launches a call)``.
-    ``(None, [])`` when the trace holds no device time. The profiler
-    slows the host, so the wall time under it is not reported."""
+    ``steps`` calls: the time the device is busy, the union of the
+    kernels' intervals (the kernels' own durations summed where the
+    trace has no intervals; the two agree where kernels do not overlap),
+    and the ``top`` kernels by time as ``(name, ms a call, launches a
+    call)``. ``(None, [])`` when the trace holds no device time. The
+    profiler slows the host, so the wall time under it is not reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from autoencoder_based_image_compression_tpu_torch.eval.ladder_probe import busy_us
 
     run()  # the profiler's own start-up stays out of the trace
     torch.cuda.synchronize()
@@ -1071,7 +1206,7 @@ def traced_device_ms(run, steps, top=6):
     kernels = [(event.key, getattr(event, "self_device_time_total",
                                    getattr(event, "self_cuda_time_total", 0)), event.count)
                for event in trace.key_averages() if event.device_type == DeviceType.CUDA]
-    total_us = sum(us for (_, us, _) in kernels)
+    total_us = busy_us(trace) or sum(us for (_, us, _) in kernels)
     if total_us <= 0:
         return (None, [])
     kernels.sort(key=lambda row: -row[1])
@@ -1124,7 +1259,8 @@ def philox_draws_equal():
     return all(torch.equal(a, b) for (a, b) in zip(replayed, eager))
 
 
-def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
+def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_epoch=None,
+                       view=None, one_step=None):
     """``train_epoch`` on the card (replays of a captured step, with
     ``train/epoch_graph.py``) against the eager loop
     (``train.step.epoch_over_rows``) from one state, at full width.
@@ -1145,7 +1281,13 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
     the ms per step graphed and eager, the kernels' time a step in a
     trace of the graphed epoch, the captures' seconds and memory.
     ``step_noise(i)`` is batch ``i``'s explicit ``train_step`` noise.
-    Returns ``(graphed ms a step, eager ms a step)``."""
+    ``eager_epoch(state, dataset, rows, noise)`` is the eager loop (by
+    default ``epoch_over_rows`` of ``fns["train_step"]``) and ``view``
+    turns a returned state into a :class:`TrainState` (a sharded
+    ladder's ``fetch``). ``one_step(graphed, eager)``, where given, holds
+    the one step instead of ``ONE_STEP_GAP`` (raising outside its bound)
+    and returns its bound's name. Returns ``(graphed ms a step, eager ms
+    a step)``."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train.state import (
@@ -1164,27 +1306,34 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
              "generator": lambda nb: shared.manual_seed(41)}
     captures = len(epoch_graph.CAPTURES)
 
+    view = view or (lambda st: st)
+    eager_epoch = eager_epoch or (lambda st, data, rows_, noise_: epoch_over_rows(
+        fns["train_step"], st, data, rows_, noise_))
+
     def eager(nb, noise):
-        return epoch_over_rows(fns["train_step"], state, dataset, rows[:nb], noise(nb))
+        return view(eager_epoch(state, dataset, rows[:nb], noise(nb)))
 
     for (form, noise) in forms.items():
-        graphed = fns["train_epoch"](state, dataset, rows[:1], noise(1))
+        graphed = view(fns["train_epoch"](state, dataset, rows[:1], noise(1)))
         expected = eager(1, noise)
         (gap, spread) = (state_gap(graphed, expected), state_gap(eager(1, noise), expected))
         held = form == "per-batch noise" or draws_equal
+        bound = (f"{ONE_STEP_GAP:g}" if one_step is None or not held
+                 else one_step(graphed, expected))
         print(f"  one graphed step against one eager step, {tag}, {form}: largest gap "
               f"{gap:.3e} of a leaf's largest entry (eager against eager {spread:.3e}) "
-              + (f"[{ONE_STEP_GAP:g}]" if held else
+              + (f"[{bound}]" if held else
                  "[not held: the graph's draws differ from the eager ones]"))
-        if held and not gap <= ONE_STEP_GAP:
+        if held and one_step is None and not gap <= ONE_STEP_GAP:
             raise AssertionError(f"{tag}: one graphed step is {gap} off the eager step")
     form = "generator" if draws_equal else "per-batch noise"
     noise = forms[form]
     eagers = [eager(GRAPHED_STEPS, noise) for _ in range(EAGER_EPOCHS)]
-    graphs = [fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
-              for _ in range(GRAPHED_EPOCHS)]
-    other = epoch_over_rows(fns["train_step"], state, dataset, rows,
-                            [step_noise(GRAPHED_STEPS + i) for i in range(GRAPHED_STEPS)])
+    returned = [fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
+                for _ in range(GRAPHED_EPOCHS)]
+    graphs = [view(graphed) for graphed in returned]
+    other = view(eager_epoch(state, dataset, rows,
+                             [step_noise(GRAPHED_STEPS + i) for i in range(GRAPHED_STEPS)]))
     spread = max(state_spread(a, b) for (a, b) in itertools.combinations(eagers, 2))
     nearest = [min(state_spread(graphed, e) for e in eagers) for graphed in graphs]
     finite = all(bool(torch.isfinite(leaf.double()).all())
@@ -1194,13 +1343,14 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
           + " and ".join(f"{gap:.3e}" for gap in nearest) + " of a leaf's norm; eager "
           f"against eager up to {spread:.3e} [one graphed epoch within that spread]; an epoch "
           f"fed other noise {min(state_spread(other, e) for e in eagers):.3e}")
+    start_step = view(state).step.to(graphs[0].step.device)
     if not (min(nearest) <= spread and finite
-            and all(torch.equal(g.step, state.step + GRAPHED_STEPS) for g in graphs)):
+            and all(torch.equal(g.step, start_step + GRAPHED_STEPS) for g in graphs)):
         raise AssertionError(f"{tag}: the graphed epochs are {nearest} off the eager epochs "
                              f"(spread {spread}), finite {finite}")
     kept = clone_state(graphs[0])
-    fns["train_epoch"](graphs[0], dataset, rows, noise(GRAPHED_STEPS))
-    if not all(torch.equal(a, b) for (a, b) in zip(state_leaves(graphs[0]),
+    fns["train_epoch"](returned[0], dataset, rows, noise(GRAPHED_STEPS))
+    if not all(torch.equal(a, b) for (a, b) in zip(state_leaves(view(returned[0])),
                                                     state_leaves(kept))):
         raise AssertionError(f"{tag}: the next graphed epoch moved the state returned before")
     torch.cuda.synchronize()
@@ -1211,7 +1361,8 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
                     dict(gk.LAUNCHES), {})
 
     # Times: CUDA events round one epoch of GRAPHED_STEPS steps, median of 5.
-    eager_ms = _median_ms(lambda: eager(GRAPHED_STEPS, noise), GRAPHED_STEPS, 5)
+    eager_ms = _median_ms(lambda: eager_epoch(state, dataset, rows, noise(GRAPHED_STEPS)),
+                          GRAPHED_STEPS, 5)
     graphed_ms = _median_ms(lambda: fns["train_epoch"](state, dataset, rows,
                                                        noise(GRAPHED_STEPS)),
                             GRAPHED_STEPS, 5)
@@ -1223,7 +1374,7 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal):
           "with their copies in and out; device busy in the graphed epoch "
           + ("not measured (the trace holds no device time)" if traced_ms is None else
              f"{100 * traced_ms / GRAPHED_STEPS / graphed_ms:.1f} % "
-             f"({traced_ms / GRAPHED_STEPS:.3f} ms of kernels a step in a profiler trace)")
+             f"({traced_ms / GRAPHED_STEPS:.3f} ms busy a step in a profiler trace)")
           + f"; {len(made)} captures: "
           + ", ".join(f"{c['nb_batches']} x {c['batch_size']} rows, {c['noise']}: warm-up "
                       f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, graph pool "
@@ -1403,6 +1554,8 @@ def phase_ladder(draws_equal):
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
         synthetic_luminance_stack,
     )
+    from autoencoder_based_image_compression_tpu_torch.eval import ladder_probe
+    from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import checkpoint, ladder, loop
     from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
@@ -1479,13 +1632,14 @@ def phase_ladder(draws_equal):
             raise AssertionError("part 0 was retrained over its checkpoints")
         (_, printed_1) = _run_printing(train_ladder.main, cli_args(1))
         resumed = load_part(2)
-    # Part 0: the pre-fit encodes once a batch and model; each of the two
-    # evaluations (training and validation portion) encodes and decodes once
-    # a model; a ladder step is 6 GDN + 3 IGDN a model, and the epoch's 12
-    # are replays of one captured step (counted at its warm-up and capture).
+    # Part 0, every GDN site one stacked launch for the seven models: the
+    # pre-fit encodes once a batch; each of the two evaluations (training
+    # and validation portion) encodes and decodes once; a ladder step is 6
+    # GDN + 3 IGDN, and the epoch's 12 are replays of one captured step
+    # (counted at its warm-up and capture).
     expect_launches("ladder training (part 0)", part_launches, {
-        "gdn_f32": nb_models * 3 * (nb_batches + 2 + 2 * GRAPH_PREP_STEPS),
-        "igdn_f32": nb_models * 3 * (2 + GRAPH_PREP_STEPS)})
+        "gdn_f32_stacked": 3 * (nb_batches + 2 + 2 * GRAPH_PREP_STEPS),
+        "igdn_f32_stacked": 3 * (2 + GRAPH_PREP_STEPS)})
     epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
     if epoch is None or f"global step {nb_batches})" not in printed_1:
         raise AssertionError("the ladder CLI's epoch lines are not as expected")
@@ -1517,59 +1671,91 @@ def phase_ladder(draws_equal):
     gk.reset_launch_counts()
     fns["train_step"](trained, eval_batch, noise)
     expect_launches("one ladder train_step", dict(gk.LAUNCHES),
-                    {"gdn_f32": 6 * nb_models, "igdn_f32": 3 * nb_models})
+                    {"gdn_f32_stacked": 6, "igdn_f32_stacked": 3})
 
-    # Model k of the ladder against a single-model run from the same
-    # start on the same batches and noise.
+    # Model k of the stacked ladder against a single-model run from the
+    # same start on the same batches and noise: one step at the JAX
+    # package's bounds for its vmapped ladder against single models
+    # (tests/test_ladder.py:67-80), then LADDER_COMPARED_STEPS steps at
+    # Adam's bound.
     batches = [dataset[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
                for i in range(LADDER_COMPARED_STEPS)]
     noises = [[(_uniform_noise(latent, 100 + 20 * i + 2 * k),
                 _uniform_noise(latent, 101 + 20 * i + 2 * k)) for k in range(nb_models)]
               for i in range(LADDER_COMPARED_STEPS)]
-    stepped = trained
+    stepped = [trained]
     for (batch, step_noise) in zip(batches, noises):
-        stepped = fns["train_step"](stepped, batch, step_noise)
+        stepped.append(fns["train_step"](stepped[-1], batch, step_noise))
     bound_gap = 2 * csts.LR_EAE * LADDER_COMPARED_STEPS * (1 + 1e-4)
     (worst_gap, outside, entries) = (0.0, 0, 0)
+    (one_gap, one_share, one_density) = (0.0, 1.0, 0.0)
     for (k, gamma) in enumerate(gammas):
-        single = ladder.ladder_slice_state(trained, k, gamma)
+        singles_k = [ladder.ladder_slice_state(trained, k, gamma)]
         for (batch, step_noise) in zip(batches, noises):
-            single = single_fns[k]["train_step"](single, batch, step_noise[k])
-        for (name, expected) in single.params.items():
-            got = stepped.params[name][k]
-            gap = (got - expected).abs()
+            singles_k.append(single_fns[k]["train_step"](singles_k[-1], batch, step_noise[k]))
+        for (name, expected) in singles_k[1].params.items():
+            gap = (stepped[1].params[name][k] - expected).abs()
+            one_gap = max(one_gap, float(gap.max()))
+            one_share = min(one_share, float((gap <= 2e-6).double().mean()))
+        (got_table, table) = (stepped[1].density.parameters[k], singles_k[1].density.parameters)
+        one_density = max(one_density, float(((got_table - table).abs() - 5e-4 * table.abs())
+                                             .max()))
+        for (name, expected) in singles_k[-1].params.items():
+            gap = (stepped[-1].params[name][k] - expected).abs()
             worst_gap = max(worst_gap, float(gap.max()))
             outside += int((gap > 1e-6 + 1e-5 * expected.abs()).sum())
             entries += gap.numel()
-        if int(stepped.density.nb_itvs_per_side[k]) != int(single.density.nb_itvs_per_side):
-            raise AssertionError(f"ladder model {k}: another grid than the single-model run")
-    print(f"  ladder vs single-model runs, {LADDER_COMPARED_STEPS} steps, {nb_models} models: "
-          f"largest parameter gap {worst_gap:.3e}; {outside} of {entries} entries outside "
-          f"rtol 1e-5 / atol 1e-6 (Adam's bound {bound_gap:.1e})")
+        for i in (1, -1):
+            if int(stepped[i].density.nb_itvs_per_side[k]) != int(
+                    singles_k[i].density.nb_itvs_per_side):
+                raise AssertionError(f"ladder model {k}: another grid than the single-model run")
+    print(f"  stacked ladder vs single-model train_steps, one step, {nb_models} models: largest "
+          f"parameter gap {one_gap:.3e} [5e-4], least share of a leaf within 2e-6 "
+          f"{one_share:.6f} [> 0.995], density table beyond rtol 5e-4 by {one_density:.3e} "
+          f"[1e-4]; grids equal")
+    print(f"  stacked ladder vs single-model runs, {LADDER_COMPARED_STEPS} steps: largest "
+          f"parameter gap {worst_gap:.3e}; {outside} of {entries} entries outside rtol 1e-5 / "
+          f"atol 1e-6 (Adam's bound {bound_gap:.1e})")
+    if not (one_gap <= 5e-4 and one_share > 0.995 and one_density <= 1e-4):
+        raise AssertionError("a stacked ladder step is outside the JAX bounds of its "
+                             "single-model steps")
     # The density gradient's scatter-add sums in an order that varies from
     # run to run, so an entry whose gradient is near zero may move by the
     # learning rate either way; no more than that, and in few entries.
     if worst_gap > bound_gap or outside > 1e-4 * entries:
         raise AssertionError("a ladder model disagrees with its single-model run")
 
-    # Times: CUDA events round one call, median of 7.
+    # Times: CUDA events round one call, median of 7, against the loop of
+    # the seven single-model steps.
     singles = [ladder.ladder_slice_state(trained, k, gamma) for (k, gamma) in enumerate(gammas)]
     ladder_ms = _median_ms(lambda: fns["train_step"](trained, eval_batch, noise), 1, 7)
     singles_ms = _median_ms(
         lambda: [single_fns[k]["train_step"](singles[k], eval_batch, noise)
                  for k in range(nb_models)], 1, 7)
-    stack_ms = _median_ms(lambda: ladder.ladder_stack_states(singles), 1, 7)
-    (traced_ms, top_kernels) = traced_device_ms(
+    (split, top_kernels, busy_ms) = ladder_probe.kernel_split(
         lambda: fns["train_step"](trained, eval_batch, noise), 5)
-    print(f"  ladder train_step ({nb_models} models): {ladder_ms:.3f} ms against "
-          f"{singles_ms:.3f} ms for {nb_models} single-model train_steps; stacking the states "
-          f"{stack_ms:.3f} ms; the CLI's epoch of {nb_batches}: {epoch.group(1)} ladder-steps/s, "
-          f"{epoch.group(2)} model-Mpix/s aggregate; device busy share "
-          + ("not measured (the trace holds no device time)" if traced_ms is None
-             else f"{100 * traced_ms / ladder_ms:.1f} % ({traced_ms:.3f} ms of kernels a ladder "
-                  f"step in a profiler trace, against the step's {ladder_ms:.3f} ms)"))
-    for (name, ms, count) in top_kernels:
+    traced_ms = sum(split.values())
+    print(f"  stacked ladder train_step ({nb_models} models): {ladder_ms:.3f} ms eager against "
+          f"{singles_ms:.3f} ms for {nb_models} single-model train_steps; the CLI's epoch of "
+          f"{nb_batches}: {epoch.group(1)} ladder-steps/s, {epoch.group(2)} model-Mpix/s "
+          "aggregate; device busy share "
+          + ("not measured (the trace holds no device time)" if busy_ms is None
+             else f"{100 * busy_ms / ladder_ms:.1f} % ({busy_ms:.3f} ms busy a ladder step in a "
+                  f"profiler trace; the kernels' durations sum to {traced_ms:.3f} ms, as they "
+                  f"overlap: cuDNN {split['cuDNN']:.3f}, GDN {split['GDN']:.3f}, elementwise / "
+                  f"reduce / the rest {split['other']:.3f})"))
+    for (name, ms, count) in top_kernels[:8]:
         print(f"    {ms:.4f} ms a ladder step, {count:.1f} launches: {name}")
+    print(f"  conv sites of a ladder step, grouped over the {nb_models} models against "
+          f"{nb_models} convs on channel slices, ms fprop / dgrad / wgrad replayed from CUDA "
+          f"graphs (separate at {sorted(conv_eae.SEPARATE_SITES)}):")
+    for (site, forms) in ladder_probe.conv_site_times(nb_models, TRAIN_BATCH,
+                                                      TRAIN_CROP).items():
+        totals = {form: sum(t for t in times if t is not None) for (form, times) in forms.items()}
+        print(f"    {site:8s} " + "; ".join(
+            f"{form} " + " / ".join("-" if t is None else f"{t:.4f}" for t in times)
+            + f" (sum {totals[form]:.4f})" for (form, times) in forms.items())
+            + f" -> {'separate' if site in conv_eae.SEPARATE_SITES else 'grouped'}")
     hold_graphed_epoch(f"the ladder of {nb_models}", fns, trained, dataset, lambda i: [
         (_uniform_noise(latent, 200 + 20 * i + 2 * k), _uniform_noise(latent, 201 + 20 * i + 2 * k))
         for k in range(nb_models)], draws_equal)
@@ -1583,18 +1769,19 @@ def _campaign_launches(args, one_model=False):
     two evaluations encode and decode once, a step encodes twice (the
     density and autoencoder phases) and decodes once, and the part's
     epochs replay one captured step, counted at its warm-up and its
-    capture; 3 sites a fixed-bin-width model, 2 for the learned one."""
+    capture; 3 sites a fixed-bin-width model, 2 for the learned one. The
+    ladder's models share each launch of the stacked kernel; a model
+    retrained alone launches the single-model kernel."""
     nb_batches = args.nb_training // args.batch_size
-    (gdn, igdn) = (0, 0)
-    models = ([(3, 1)] if one_model else
-              [(3, len(args.gammas_trained)), (2, 1)])
+    launches = collections.Counter()
+    models = ([("", 3)] if one_model else [("_stacked", 3), ("", 2)])
     parts = [args.nb_parts - 1] if one_model else range(args.nb_parts)
     for idx_part in parts:
-        for (sites, nb_models) in models:
-            gdn += nb_models * sites * ((nb_batches if idx_part == 0 else 0)
-                                        + 2 * args.nb_epochs + 2 * GRAPH_PREP_STEPS)
-            igdn += nb_models * sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
-    return {"gdn_f32": gdn, "igdn_f32": igdn}
+        for (variant, sites) in models:
+            launches["gdn_f32" + variant] += sites * (
+                (nb_batches if idx_part == 0 else 0) + 2 * args.nb_epochs + 2 * GRAPH_PREP_STEPS)
+            launches["igdn_f32" + variant] += sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
+    return dict(launches)
 
 
 def _study_launches(nb_images, families):
@@ -1910,7 +2097,7 @@ def _hold_state(label, got, expected, steps=1):
     return (worst, outside, entries, density, bw)
 
 
-def phase_distributed(card):
+def phase_distributed(card, draws_equal):
     """The distributed layer on the card; returns each path's launch
     counts and the (variant, rows) counts its kernels were launched at."""
     from autoencoder_based_image_compression_tpu_torch import dryrun
@@ -1936,7 +2123,11 @@ def phase_distributed(card):
         make_sharded_step_fns,
     )
     from autoencoder_based_image_compression_tpu_torch.train import ladder
-    from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns, rd_gradients
+    from autoencoder_based_image_compression_tpu_torch.train.step import (
+        epoch_over_rows,
+        make_step_fns,
+        rd_gradients,
+    )
     from autoencoder_based_image_compression_tpu_torch import constants as csts
 
     paths = {}
@@ -2110,8 +2301,10 @@ def phase_distributed(card):
     gk.reset_launch_counts()
     sharded = fns["train_step"](ladder.shard_ladder_state(states, seven), batch, noises)
     record("ladder over seven shards")
+    # Each shard is a stacked ladder of one model: its six GDN sites one
+    # stacked launch each.
     expect_launches("ladder over seven shards", paths["ladder over seven shards"],
-                    {"gdn_f32": 6 * len(gammas), "igdn_f32": 3 * len(gammas)})
+                    {"gdn_f32_stacked": 6 * len(gammas), "igdn_f32_stacked": 3 * len(gammas)})
     (whole, plain_host) = (distributed.fetch_replicated(sharded),
                            distributed.fetch_replicated(plain))
     (worst, outside, entries) = (0.0, 0, 0)
@@ -2122,6 +2315,32 @@ def phase_distributed(card):
     print(f"  ladder step of {len(gammas)} models over {len(gammas)} shards of the card against "
           f"the unsharded ladder step: largest weight gap {worst:.3e}, {outside} of {entries} "
           f"entries outside rtol 1e-5 / atol 1e-6 [{card}]")
+    # The sharded ladder's epoch: one graph a block on its device, the
+    # blocks one after the other, against the same blocks' eager loops in
+    # that order (a shared generator draws block after block). One step
+    # is held model by model at Adam's bound, as the sharded step above:
+    # with seven models two eager steps already part by a sign flip of
+    # Adam's update (7.5e-04 of a leaf's largest entry in a run).
+    block_steps = {i: ladder.make_ladder_step_fns(gammas[i:i + 1])["train_step"]
+                   for i in range(len(gammas))}
+
+    def eager_blocks(shards, data, rows, noise):
+        return shards.map_blocks(lambda i, block: epoch_over_rows(
+            block_steps[i], block, data, rows, noise if isinstance(noise, torch.Generator)
+            else [batch_noise[i:i + 1] for batch_noise in noise]))
+
+    epoch_crops = torch.from_numpy(synthetic_luminance_stack(
+        GRAPHED_STEPS * TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, seed=31)).cuda()
+    hold_graphed_epoch(f"the ladder over {len(gammas)} shards", fns,
+                       ladder.shard_ladder_state(states, seven), epoch_crops, lambda i: [
+                           (_uniform_noise(latent, 500 + 20 * i + 2 * k),
+                            _uniform_noise(latent, 501 + 20 * i + 2 * k))
+                           for k in range(len(gammas))], draws_equal,
+                       eager_epoch=eager_blocks, view=distributed.fetch_replicated,
+                       one_step=lambda got, expected: [_hold_state(
+                           f"sharded graphed step, model {k}", ladder.ladder_slice_state(got, k),
+                           ladder.ladder_slice_state(expected, k))
+                           for k in range(len(gammas))] and "Adam's bound, model by model")
 
     # --- (e) the scaling report and the dry run.
     gk.reset_launch_counts()
@@ -2582,7 +2801,8 @@ def phase_campaign(card):
                 expected.update(statistics_expected)
                 expected.update(evaluation_expected)
                 record(label, expected, {"gdn_f32": TRAIN_SHAPES + STATS_SHAPES + SERVE_SHAPES,
-                                         "igdn_f32": TRAIN_SHAPES + SERVE_SHAPES})
+                                         "igdn_f32": TRAIN_SHAPES + SERVE_SHAPES,
+                                         **STACKED_ENTRIES})
                 # The parts' seconds as the campaign printed them (a ladder
                 # model trained alone counts as its ladder part).
                 part_s = {f"{'learned-bw' if name.startswith('learning') else 'ladder'} part "
@@ -2860,7 +3080,17 @@ def check_seen_rows(rows_seen, phase="phase 9"):
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
 
     timed = {(name, ROWS[shape]) for (name, variant) in VARIANTS.items() for shape in variant[4]}
+    timed |= {(name, (ROWS[shape.split()[0]], 1 if shape.endswith("x1") else STACKED_MODELS))
+              for name in STACKED_VARIANTS for shape in STACKED_SHAPES}
     for (seed, ((name, rows), launches)) in enumerate(sorted(rows_seen.items())):
+        if name in STACKED_VARIANTS:
+            (per_model, models) = rows
+            (_, max_abs) = check_stacked(name, per_model, models, 50 + seed)
+            print(f"  {name:17s} rows {models} x {per_model:6d}: {launches} launches in {phase}; "
+                  f"max abs err {max_abs:.3e} [rtol 1e-5, atol 1e-6], models equal to the "
+                  "single-model kernel bit for bit"
+                  + ("; timed in phase 2" if (name, rows) in timed else ""))
+            continue
         (_, inverse, quantize, _, _, _) = VARIANTS[name]
         (x, *params) = kernel_inputs(name, rows, 50 + seed)
         kernel = gk.gdn_quantize_2d if quantize else gk.gdn_2d
@@ -2893,6 +3123,7 @@ def main():
 
     print("phase 2: kernels against their plain versions")
     kernel_results = phase_kernels()
+    kernel_results.update(phase_stacked_kernels())
     phase_gradient()
     print("phase 3: serving (PipelinedCompressor)")
     (path_launches, pipeline_table, psnrs_fp32) = phase_serving(kernel_results)
@@ -2917,7 +3148,7 @@ def main():
     phase_gate_sets()
 
     print(f"phase 9: the distributed layer [{card}]")
-    (launches, rows_seen) = phase_distributed(card)
+    (launches, rows_seen) = phase_distributed(card, draws_equal)
     path_launches.update(launches)
     print("  the kernels against their plain versions at the distributed paths' row counts:")
     check_seen_rows(rows_seen)
@@ -2960,9 +3191,10 @@ def main():
     on_path += [(name, "training, fixed bin widths", shape)
                 for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
     on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
-    on_path += [(name, path, shape) for (path, shapes) in (("ladder training", TRAIN_SHAPES),
-                                                          ("rd study", SERVE_SHAPES))
-                for name in ("gdn_f32", "igdn_f32") for shape in shapes]
+    on_path += [(name, "ladder training", shape) for name in STACKED_VARIANTS
+                for shape in TRAIN_SHAPES]
+    on_path += [(name, "rd study", shape) for name in ("gdn_f32", "igdn_f32")
+                for shape in SERVE_SHAPES]
     # The distributed layer (phase 9): a band or a data block is half a
     # serving batch; the sharded training and ladder steps keep a step's rows.
     on_path += [(name, "spatial roundtrip, learned", shape)
@@ -2974,7 +3206,7 @@ def main():
                 ("igdn_f32", "stream roundtrip over a data mesh", "S/4")]
     on_path += [(name, f"distributed training, {tag} bin widths", "T/4")
                 for name in ("gdn_f32", "igdn_f32") for tag in ("learned", "fixed")]
-    on_path += [(name, "ladder over seven shards", "T/16") for name in ("gdn_f32", "igdn_f32")]
+    on_path += [(name, "ladder over seven shards", "T/16 x1") for name in STACKED_VARIANTS]
     # The tooling (phase 11): the Laplace fit and the masking at the serving
     # batch's rows, the activation probe and the importer's decode at a
     # 16 x 16 latent's, visualize_model at two images'.
@@ -2998,13 +3230,16 @@ def main():
         if launches <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
         result = kernel_results[(name, shape)]
+        stacked = name in STACKED_VARIANTS
+        single = STACKED_VARIANTS[name][0] if stacked else name
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{TPU_KERNELS}:{VARIANTS[name][5]}", "launches": launches,
+            "replaces": f"{TPU_KERNELS}:{VARIANTS[single][5]}", "launches": launches,
             "max_abs_err": result["max_abs_err"], "ms": result["ms"],
             "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
             "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
-            "path": path, "rows": ROWS[shape]})
+            "path": path, "rows": ROWS[shape.split()[0]],
+            "models": (1 if shape.endswith("x1") else STACKED_MODELS) if stacked else 1})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,9 @@ the others by 3.8e-6 at most; Adam's moments within 4.8e-5 of each
 leaf's largest entry; the density table within 2.0e-6. Free-running, the
 port's second step leaves 12,533 entries of the gamma 96,000 model more
 than 1e-5 from the JAX ladder's, all inside the bound of 4e-4. The
-port's ladder equals its own sequential single-model runs bit for bit
-(the ladder is a loop over those functions).
+port's ladder is one program over the stacked models and is held
+against its own sequential single-model runs at the JAX package's
+bounds for its vmapped ladder against single models.
 """
 
 import functools
@@ -211,11 +212,25 @@ def test_ladder_equals_sequential_single_models():
         noise = _step_noise(key)
         singles = [single_fns[k]["train_step"](singles[k], _t(_batch(seed)), noise[k])
                    for k in range(len(GAMMAS))]
+    # The ladder is one program over the stacked models (grouped convs,
+    # the stacked GDN kernel, batched matmuls), so it is held at the JAX
+    # package's bounds for its vmapped ladder against single-model runs
+    # (tests/test_ladder.py:67-80): an entry whose gradient sits at the
+    # numeric noise floor can flip Adam's update, everything else agrees
+    # tightly; the density fit's SGD amplifies the same noise.
     for k in range(len(GAMMAS)):
         got = tck.state_to_jax(tladder.ladder_slice_state(torch_states[-1], k))
         expected = tck.state_to_jax(singles[k])
+        assert set(got) == set(expected)
         for key in expected:
-            numpy.testing.assert_array_equal(got[key], expected[key], err_msg=key)
+            if key.startswith(".params"):
+                diff = numpy.abs(got[key] - expected[key])
+                assert diff.max() <= 5.0e-4, (GAMMAS[k], key, diff.max())
+                assert (diff <= 2.0e-6).mean() > 0.995, (GAMMAS[k], key)
+            elif key == ".density.parameters":
+                numpy.testing.assert_allclose(got[key], expected[key], rtol=5e-4, atol=1e-4)
+            elif not (".mu[" in key or ".nu[" in key):  # the counts, the extent, bin widths
+                numpy.testing.assert_array_equal(got[key], expected[key], err_msg=key)
 
 
 def test_train_epoch_is_the_loop_of_train_steps_with_a_generator():

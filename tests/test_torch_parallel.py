@@ -225,7 +225,7 @@ def test_shard_ladder_state_matches_the_unsharded_ladder_step():
                                       rtol=1e-6, atol=1e-7, err_msg=name)
     numpy.testing.assert_array_equal(whole.density.nb_itvs_per_side.numpy(),
                                      plain.density.nb_itvs_per_side.numpy())
-    # Two models a shard run the same loop over their own models.
+    # Two models a shard run the same stacked step over their own models.
     halves = shard_ladder_state(ladder, make_mesh(1, devices=["cpu"] * 2))
     again = fetch_replicated(fns["train_step"](halves, batch, noise))
     numpy.testing.assert_allclose(again.density.parameters.numpy(),
