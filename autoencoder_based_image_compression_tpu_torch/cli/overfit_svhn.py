@@ -5,7 +5,10 @@ package's ``cli/overfit_svhn.py``: trains on a handful of digits and
 prints the objective's trajectory, a fast check that the alternating
 optimisation drives the rate-distortion objective down. One ``eps`` a
 step serves both phases; the evaluation noise is the same draw every
-time, as the reference's fixed evaluation key.
+time, as the reference's fixed evaluation key. The digits are one batch:
+the pre-fit is one ``fit_epoch`` of its steps over that batch, and each
+epoch one ``train_epoch`` of one batch (on the card, one replay of a
+captured step).
 """
 
 import argparse
@@ -18,6 +21,7 @@ from autoencoder_based_image_compression_tpu_torch.data.svhn import (
     synthetic_svhn,
 )
 from autoencoder_based_image_compression_tpu_torch.models import dense_eae
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 from autoencoder_based_image_compression_tpu_torch.utils.parsing import (
     float_strictly_positive,
@@ -51,13 +55,11 @@ def main(args=None):
     eps_eval = dense_eae.uniform_eps(torch.Generator(device).manual_seed(args.seed + 2),
                                      latent_shape, device)
 
+    batch = rows_in_order(1, digits.shape[0])
     objectives = []
-    for _ in range(NB_FITTING_STEPS):
-        state = fns["training_fct"](state, digits, noise)
+    state = fns["fit_epoch"](state, digits, batch.expand(NB_FITTING_STEPS, -1), noise)
     for epoch in range(args.nb_epochs):
-        eps = dense_eae.uniform_eps(noise, latent_shape, device)
-        state = fns["training_fct"](state, digits, eps)
-        state = fns["training_eae_bw"](state, digits, eps)
+        state = fns["train_epoch"](state, digits, batch, noise)
         if epoch % 50 == 0 or epoch == args.nb_epochs - 1:
             (_, scaled_h, rec, _, _) = fns["evaluation"](state, digits, eps_eval)
             objectives.append(float(scaled_h) + float(rec))

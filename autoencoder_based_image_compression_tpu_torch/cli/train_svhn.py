@@ -10,7 +10,11 @@ package's ``reconstruct_svhn`` loads it.
 
 The training set is uploaded once and every batch is gathered on the
 device. One ``eps`` is drawn per batch and both phases of the batch see
-it, as both of the reference's phases see one key.
+it, as both of the reference's phases see one key. The pre-fit epochs
+and the training epochs are the step functions' ``fit_epoch`` and
+``train_epoch``: on the card the replays of one captured step each (the
+JAX command line's jitted steps), on the CPU the eager loop. The
+permutation of an epoch is drawn on the host, one an epoch.
 """
 
 import argparse
@@ -26,6 +30,7 @@ from autoencoder_based_image_compression_tpu_torch.data.svhn import (
 )
 from autoencoder_based_image_compression_tpu_torch.models import dense_eae
 from autoencoder_based_image_compression_tpu_torch.train.checkpoint import save_checkpoint
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
 from autoencoder_based_image_compression_tpu_torch.utils.parsing import (
@@ -73,21 +78,15 @@ def main(args=None):
     fns = dense_eae.make_dense_step_fns(args.gamma, args.learn_bin_width)
     noise = torch.Generator(device).manual_seed(args.seed + 1)
     nb_batches = training.shape[0] // args.batch_size
-    latent_shape = (args.batch_size, state.params["we_latent"].shape[1])
     rng = numpy.random.default_rng(args.seed)
 
     for _ in range(args.nb_epochs_fitting):
-        for j in range(nb_batches):
-            eps = dense_eae.uniform_eps(noise, latent_shape, device)
-            batch = training[j * args.batch_size:(j + 1) * args.batch_size]
-            state = fns["training_fct"](state, batch, eps)
+        state = fns["fit_epoch"](state, training, rows_in_order(nb_batches, args.batch_size),
+                                 noise)
     for epoch in range(args.nb_epochs_training):
-        permutation = torch.from_numpy(rng.permutation(training.shape[0])).to(device)
-        for i in range(nb_batches):
-            eps = dense_eae.uniform_eps(noise, latent_shape, device)
-            batch = training[permutation[i * args.batch_size:(i + 1) * args.batch_size]]
-            state = fns["training_fct"](state, batch, eps)
-            state = fns["training_eae_bw"](state, batch, eps)
+        permutation = rng.permutation(training.shape[0])
+        rows = permutation[:nb_batches * args.batch_size].reshape(nb_batches, args.batch_size)
+        state = fns["train_epoch"](state, training, rows, noise)
         if epoch % 50 == 0 or epoch == args.nb_epochs_training - 1:
             (approx_h, _, rec, fct, _) = fns["evaluation"](
                 state, training[:args.batch_size], noise)

@@ -4,9 +4,11 @@ Counterpart of ``svhn/training_vae_svhn.py``,
 ``reconstructing_vae_svhn.py`` and ``generating_vae_svhn.py`` and of the
 reference package's ``cli/train_vae.py``: one entry point with the
 subcommands ``train``, ``reconstruct`` and ``generate``, plus ``--device
-cuda|cpu``. ``train`` writes ``model.npz`` and its ``model.json``
-sidecar (no density: ``nb_itvs_per_side`` is null), which ``reconstruct``
-and ``generate`` load, and so does the reference package's loader.
+cuda|cpu``. ``train`` runs its epochs through ``vae.make_vae_epoch_fn``
+(on the card, the replays of one captured step) and writes ``model.npz``
+and its ``model.json`` sidecar (no density: ``nb_itvs_per_side`` is
+null), which ``reconstruct`` and ``generate`` load, and so does the
+reference package's loader.
 """
 
 import argparse
@@ -69,16 +71,16 @@ def main(args=None):
         training = torch.from_numpy(
             preprocess_svhn(training_uint8, mean_training, std_training)).to(device)
         state = template
-        step = vae.make_vae_step_fn(args.alpha)
+        train_epoch = vae.make_vae_epoch_fn(args.alpha)
         noise = torch.Generator(device).manual_seed(1)
         nb_batches = training.shape[0] // args.batch_size
         rng = numpy.random.default_rng(0)
         losses = []
         for epoch in range(args.nb_epochs_training):
-            permutation = torch.from_numpy(rng.permutation(training.shape[0])).to(device)
-            for i in range(nb_batches):
-                rows = permutation[i * args.batch_size:(i + 1) * args.batch_size]
-                state = step(state, training[rows], noise)
+            permutation = rng.permutation(training.shape[0])
+            rows = permutation[:nb_batches * args.batch_size].reshape(nb_batches,
+                                                                      args.batch_size)
+            state = train_epoch(state, training, rows, noise)
             if epoch % 20 == 0 or epoch == args.nb_epochs_training - 1:
                 with torch.no_grad():
                     losses.append(float(vae.opposite_vlb(

@@ -15,9 +15,15 @@ on the card (``resolve_device`` turns TF32 off).
 
 **Noise.** Where the reference takes a random key, the step functions
 take ``noise``: a ``torch.Generator`` on the state's device, from which
-U[-0.5, 0.5) of the latents' shape is drawn, or that ``eps`` itself. The
-command lines draw one ``eps`` per batch and hand the same tensor to
-both phases, as the reference's do with one key.
+U[-0.5, 0.5) of the latents' shape is drawn, or that ``eps`` itself.
+``train_step`` draws one ``eps`` per batch and hands the same tensor to
+both phases, as the reference's command lines do with one key.
+
+**Epochs.** ``fit_epoch`` (the density pre-fit) and ``train_epoch``
+(the alternation) run a step over the ``(nb_batches, batch_size)`` rows
+of a device-resident set: on the card, the replays of one captured step
+(``train/epoch_graph.py``), the counterpart of the JAX package's jitted
+steps, one program a call; on the CPU, the eager loop.
 
 Defaults from ``EntropyAutoencoder.__init__``: 4 points per interval, 10
 intervals per side, lr_eae 4e-5 with momentum 0.9, lr_fct 0.2, lr_bw
@@ -32,6 +38,7 @@ import torch
 
 from autoencoder_based_image_compression_tpu_torch.ops import density as dens
 from autoencoder_based_image_compression_tpu_torch.ops.metrics import discrete_entropy
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import epoch_fn
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 
 # SVHN-side hyperparameter defaults.
@@ -165,12 +172,22 @@ def _loss_eae(params, bin_width, visible_units, eps, parameters, gamma, max_itvs
 
 
 def make_dense_step_fns(gamma, is_bin_width_learned, max_itvs=MAX_ITVS):
-    """``training_fct`` / ``training_eae_bw`` / ``evaluation`` of the SVHN
-    EAE, each ``(state, visible_units, noise)``.
+    """The training and evaluation functions of the SVHN EAE.
 
     Mirrors ``svhn/eae/EntropyAutoencoder.py:1054-1117``: plain SGD on
     the density, SGD + momentum (0.9) on the autoencoder, SGD with floor
-    0.1 on the bin width.
+    0.1 on the bin width. Returns a dict with:
+
+    - ``training_fct(state, visible_units, noise)``: the density step;
+    - ``training_eae_bw(state, visible_units, noise)``: the autoencoder
+      and bin-width step;
+    - ``train_step(state, visible_units, noise)``: the alternation, one
+      ``eps`` drawn from ``noise`` (or ``noise`` itself) for both phases;
+    - ``fit_epoch(state, dataset, rows, noise)``: ``training_fct`` over
+      the rows (the pre-fit), ``noise`` a generator or one ``eps`` a batch;
+    - ``train_epoch(state, dataset, rows, noise)``: ``train_step`` over
+      the rows, ``noise`` likewise;
+    - ``evaluation(state, visible_units, noise)``: the indicators, eager.
     """
 
     def training_fct(state, visible_units, noise):
@@ -212,6 +229,10 @@ def make_dense_step_fns(gamma, is_bin_width_learned, max_itvs=MAX_ITVS):
         return state._replace(params=new_params, momentum=momentum, bin_width=new_bin_width,
                               step=state.step + 1)
 
+    def train_step(state, visible_units, noise):
+        eps = uniform_eps(noise, _latent_shape(state, visible_units), state.bin_width.device)
+        return training_eae_bw(training_fct(state, visible_units, eps), visible_units, eps)
+
     @torch.no_grad()
     def evaluation(state, visible_units, noise):
         """``(approx_entropy, scaled_approx_entropy, rec_error,
@@ -232,7 +253,8 @@ def make_dense_step_fns(gamma, is_bin_width_learned, max_itvs=MAX_ITVS):
         return (approx_entropy, gamma * approx_entropy, rec_error, loss_density, y)
 
     return {"training_fct": training_fct, "training_eae_bw": training_eae_bw,
-            "evaluation": evaluation}
+            "train_step": train_step, "fit_epoch": epoch_fn(training_fct),
+            "train_epoch": epoch_fn(train_step), "evaluation": evaluation}
 
 
 @torch.no_grad()

@@ -11,12 +11,17 @@ trained by minimising the opposite of Kingma's VLB approximation
 Where the reference takes a random key, these functions take ``noise``:
 a ``torch.Generator`` on the parameters' device, from which the standard
 normal draw is made, or that draw itself.
+
+An epoch of steps (:func:`make_vae_epoch_fn`) is, on the card, the
+replays of one captured step (``train/epoch_graph.py``), the counterpart
+of the JAX package's jitted ``train_step``; on the CPU, the eager loop.
 """
 
 from typing import Dict, NamedTuple
 
 import torch
 
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import epoch_fn
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 
 LR_VAE = 2.0e-5
@@ -139,6 +144,15 @@ def make_vae_step_fn(alpha, is_continuous=True):
         return state._replace(params=new_params, momentum=momentum, step=state.step + 1)
 
     return train_step
+
+
+def make_vae_epoch_fn(alpha, is_continuous=True):
+    """``train_epoch(state, dataset, rows, noise)``: the training step of
+    :func:`make_vae_step_fn` over the ``(nb_batches, batch_size)`` rows of
+    a device-resident set; ``noise`` is a generator (registered with the
+    graph on the card, so each replay draws on from it) or one draw per
+    batch."""
+    return epoch_fn(make_vae_step_fn(alpha, is_continuous))
 
 
 @torch.no_grad()

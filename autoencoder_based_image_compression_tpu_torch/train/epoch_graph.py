@@ -7,11 +7,21 @@ device-resident uint8 dataset inside its body. Here one training step is
 captured once into a ``torch.cuda.CUDAGraph`` over static inputs, and an
 epoch is ``nb_batches`` replays of it with no host work between them.
 
+Any step of the form ``step(state, batch, noise) -> state`` is taken,
+over any state of the port (``train.state.map_state``'s structures): the
+Kodak ``train_step`` and its density pre-fit ``training_fct``, one model
+or the stacked ladder; the SVHN alternation and pre-fit
+(``models/dense_eae.py``); the VAE step; the entropy study's density
+fit. Each is the counterpart of a step the JAX package runs as one
+jitted program a call. :func:`epoch_fn` gives a step's epoch: the graph
+on the card, the eager loop :func:`epoch_over_rows` on the CPU.
+
 **Static inputs** (:class:`EpochProgram`): the state's buffers, the
 dataset, the ``(nb_batches, batch_size)`` int64 rows, a device step
 counter and the noise: a CUDA ``torch.Generator``, registered with the
-graph so that every replay draws on from where the generator stands, or
-one ``train_step`` noise per batch, stacked in device buffers. The
+graph so that every replay draws on from where the generator stands,
+one ``train_step`` noise per batch, stacked in device buffers, or
+``None`` for a step that draws nothing. The
 captured step gathers ``dataset.index_select(0,
 rows.index_select(0, counter))``, runs the unchanged ``train_step`` on
 the buffers, writes the new state into them with ``copy_`` and advances
@@ -19,7 +29,8 @@ the counter. Everything that needs the host (converting the rows,
 checking the noise) happens before the first replay.
 
 **Per epoch** the state, the dataset and the rows go in with one device
-copy each (the noise too, when it is given per batch), the graph
+copy each (the noise too, when it is given per batch; the dataset only
+when it is not the tensor loaded last, unchanged since), the graph
 replays once a batch, and the state comes out as a clone: the next epoch
 overwrites the buffers, and a caller that keeps an earlier state (a
 checkpoint written after the epoch, the stability study) must not see it
@@ -41,6 +52,7 @@ warm-up step and the capture, never at a replay.
 """
 
 import time
+import weakref
 
 import torch
 
@@ -55,9 +67,32 @@ CAPTURES = []
 
 
 def check_noises(noise, nb_batches):
-    """Raises unless ``noise`` is a generator or one noise per batch."""
-    if not isinstance(noise, torch.Generator) and len(noise) != nb_batches:
+    """Raises unless ``noise`` is a generator, ``None`` or one noise per
+    batch."""
+    if noise is not None and not isinstance(noise, torch.Generator) and (
+            len(noise) != nb_batches):
         raise ValueError(f"{len(noise)} noises for {nb_batches} batches.")
+
+
+def rows_in_order(nb_batches, batch_size):
+    """The ``(nb_batches, batch_size)`` rows of the batches in the
+    dataset's order, ``[j * batch_size, (j + 1) * batch_size)`` for batch
+    ``j`` (a pre-fit's batches, which slices took before)."""
+    return torch.arange(nb_batches * batch_size, dtype=torch.int64).reshape(nb_batches,
+                                                                             batch_size)
+
+
+def epoch_over_rows(step, state, dataset, rows, noise):
+    """``step`` over the ``(nb_batches, batch_size)`` row indices of a
+    device-resident dataset, each batch gathered on the device; ``noise``
+    is a generator, ``None`` or one ``step`` noise per batch. The eager
+    loop: an epoch takes it for a state on the CPU."""
+    rows = torch.as_tensor(rows, device=dataset.device).to(torch.int64)
+    check_noises(noise, rows.shape[0])
+    per_batch = noise is not None and not isinstance(noise, torch.Generator)
+    for (i, batch_rows) in enumerate(rows):
+        state = step(state, dataset.index_select(0, batch_rows), noise[i] if per_batch else noise)
+    return state
 
 
 def _noise_leaves(noise):
@@ -95,9 +130,12 @@ class EpochProgram:
         device = dataset.device
         self.buffers = clone_state(state)
         self.dataset = torch.empty_like(dataset)
+        # The dataset loaded last (a weak reference) and its version: an
+        # epoch over the same tensor, unchanged since, skips its copy.
+        self.loaded = (lambda: None, None)
         self.rows = torch.empty(tuple(rows.shape), dtype=torch.int64, device=device)
         self.counter = torch.zeros((1,), dtype=torch.int64, device=device)
-        if isinstance(noise, torch.Generator):
+        if noise is None or isinstance(noise, torch.Generator):
             (self.generator, self.template, self.noise) = (noise, None, [])
         else:
             (self.generator, self.template) = (None, noise[0])
@@ -111,10 +149,13 @@ class EpochProgram:
     def load(self, state, dataset, rows, noise):
         """An epoch's inputs into the static buffers, the counter to 0."""
         copy_state_into(self.buffers, state)
-        self.dataset.copy_(dataset)
+        (loaded, version) = self.loaded
+        if loaded() is not dataset or version != dataset._version:
+            self.dataset.copy_(dataset)
+            self.loaded = (weakref.ref(dataset), dataset._version)
         self.rows.copy_(rows)
         self.counter.zero_()
-        if self.generator is None:
+        if self.template is not None:
             (targets, sources) = ([], [])
             for (i, batch_noise) in enumerate(noise):
                 for (buffer, leaf) in zip(self.noise, _noise_leaves(batch_noise)):
@@ -126,7 +167,7 @@ class EpochProgram:
         """One training step on batch ``counter`` of the rows: the new
         state is written into ``buffers``, and ``counter`` advances."""
         batch = self.dataset.index_select(0, self.rows.index_select(0, counter).reshape(-1))
-        if self.generator is not None:
+        if self.template is None:
             noise = self.generator if generator is None else generator
         else:
             noise = _noise_like(self.template,
@@ -142,7 +183,7 @@ class _CapturedEpoch:
     def __init__(self, program):
         if torch.backends.cudnn.deterministic:
             raise RuntimeError(
-                "train_epoch would capture its graph with "
+                "a graphed epoch would capture its step with "
                 "torch.backends.cudnn.deterministic set, which freezes cuDNN's slow "
                 "deterministic algorithms into every replay; close "
                 "utils.device.deterministic_cudnn() first.")
@@ -176,8 +217,9 @@ class _CapturedEpoch:
                          "pool_bytes": torch.cuda.memory_reserved(device) - reserved,
                          "nb_batches": program.nb_batches,
                          "batch_size": program.rows.shape[1],
-                         "noise": "generator" if program.generator is not None
-                         else "per batch"})
+                         "noise": ("per batch" if program.template is not None
+                                   else "generator" if program.generator is not None
+                                   else "none")})
 
     def run(self):
         for _ in range(self.program.nb_batches):
@@ -190,9 +232,12 @@ class GraphedEpoch:
     on the card, as replays of a captured graph.
 
     Captures are kept by (dataset shape, the rows' shape, the state's
-    shapes and dtypes, the noise form: which generator, or the shapes of
-    a batch's noise), and live as long as this object, which the step
-    functions of ``make_step_fns`` / ``make_ladder_step_fns`` hold.
+    shapes and dtypes, the noise form: which generator, none, or the
+    shapes of a batch's noise), and live as long as this object, which
+    the function of :func:`epoch_fn` holds. The batches are whole: the
+    rows are ``(nb_batches, batch_size)`` (a set that batches do not
+    divide leaves its remainder out of the rows, as the command lines do),
+    so every epoch of one path finds its capture.
     """
 
     def __init__(self, train_step):
@@ -205,7 +250,7 @@ class GraphedEpoch:
         rows = torch.as_tensor(rows).to(torch.int64)
         check_noises(noise, rows.shape[0])
         form = (("generator", noise) if isinstance(noise, torch.Generator)
-                else _signature(noise[0]))
+                else None if noise is None else _signature(noise[0]))
         key = (tuple(dataset.shape), dataset.dtype, dataset.device, tuple(rows.shape),
                tuple((tuple(leaf.shape), leaf.dtype, leaf.device)
                      for leaf in state_leaves(state)), form)
@@ -217,3 +262,21 @@ class GraphedEpoch:
         else:
             entry.program.load(state, dataset, rows, noise)
         return entry.run()
+
+
+def epoch_fn(step):
+    """``epoch(state, dataset, rows, noise)``: ``step`` over the
+    ``(nb_batches, batch_size)`` rows of a device-resident dataset. For a
+    state on the card, the replays of one captured step
+    (:class:`GraphedEpoch`, whose captures live as long as the returned
+    function); for a state on the CPU, the eager loop
+    :func:`epoch_over_rows`. On the card the returned state shares no
+    storage with the given one or with the graph."""
+    graphed = GraphedEpoch(step)
+
+    def epoch(state, dataset, rows, noise):
+        if state_leaves(state)[0].is_cuda:
+            return graphed(state, dataset, rows, noise)
+        return epoch_over_rows(step, state, dataset, rows, noise)
+
+    return epoch

@@ -60,7 +60,7 @@ import torch
 from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.ops import density as dens
-from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import GraphedEpoch
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import epoch_fn
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     TrainState,
     adam_update,
@@ -68,10 +68,7 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     ladder_boundaries,
     map_state,
 )
-from autoencoder_based_image_compression_tpu_torch.train.step import (
-    _project_gdn,
-    epoch_over_rows,
-)
+from autoencoder_based_image_compression_tpu_torch.train.step import _project_gdn
 
 
 def ladder_stack_states(states):
@@ -253,7 +250,8 @@ class _StackedLadder:
     def __init__(self, gammas, ppi, max_itvs):
         (self.gammas, self.ppi, self.max_itvs) = (list(gammas), ppi, max_itvs)
         self._constants = {}
-        self.graphed_epoch = GraphedEpoch(self.train_step)
+        self.fit_epoch = epoch_fn(self.training_fct)
+        self.train_epoch = epoch_fn(self.train_step)
 
     def constants(self, device):
         """``(gammas, learning-rate boundaries)`` as tensors on ``device``,
@@ -297,11 +295,6 @@ class _StackedLadder:
         states = self.training_fct(states, batch, noise_fct)
         return self.training_eae(states, batch, noise_eae)
 
-    def train_epoch(self, states, dataset, rows, noise):
-        if states.step.is_cuda:
-            return self.graphed_epoch(states, dataset, rows, noise)
-        return epoch_over_rows(self.train_step, states, dataset, rows, noise)
-
     @torch.no_grad()
     def evaluation(self, states, batch, noise):
         (gammas, _) = self.constants(states.step.device)
@@ -324,14 +317,16 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
                          max_itvs=csts.MAX_ITVS_PER_SIDE):
     """Whole-ladder training functions.
 
-    Returns ``{"training_fct", "train_step", "train_epoch"}``, the
-    ladder counterparts of :func:`train.step.make_step_fns`'s entries
-    (fixed-bin-width architecture), each one program over the stacked
-    state. Each takes and returns the stacked state, or the
-    :class:`LadderShards` of :func:`shard_ladder_state` (each block runs
-    the stacked functions of its own models). ``train_epoch`` on a CUDA
-    state replays one captured ladder step a batch, a block's on that
-    block's device for a sharded ladder, and loops on the CPU.
+    Returns ``{"training_fct", "train_step", "fit_epoch",
+    "train_epoch"}``, the ladder counterparts of
+    :func:`train.step.make_step_fns`'s entries (fixed-bin-width
+    architecture), each one program over the stacked state. Each takes
+    and returns the stacked state, or the :class:`LadderShards` of
+    :func:`shard_ladder_state` (each block runs the stacked functions of
+    its own models). ``fit_epoch`` and ``train_epoch`` on a CUDA state
+    replay one captured ladder ``training_fct`` / ``train_step`` a batch,
+    a block's on that block's device for a sharded ladder, block after
+    block, and loop on the CPU.
     """
     whole = _StackedLadder(gammas, ppi, max_itvs)
     blocks = {}
@@ -358,24 +353,27 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
             return states.map_blocks(block_step)
         return fn
 
-    def train_epoch(states, dataset, rows, noise):
-        if not isinstance(states, LadderShards):
-            return whole.train_epoch(states, dataset, rows, noise)
+    def over_epochs(name):
+        def fn(states, dataset, rows, noise):
+            if not isinstance(states, LadderShards):
+                return getattr(whole, name)(states, dataset, rows, noise)
 
-        # Block after block, each block's whole epoch on its device.
-        def block_epoch(i, block):
-            (fns, models) = block_fns(states, i)
-            device = block.step.device
-            block_noise = noise if isinstance(noise, torch.Generator) else [
-                _block_noise(batch_noise, models, device) for batch_noise in noise]
-            return fns.train_epoch(block, dataset.to(device), rows, block_noise)
+            # Block after block, each block's whole epoch on its device.
+            def block_epoch(i, block):
+                (fns, models) = block_fns(states, i)
+                device = block.step.device
+                block_noise = noise if isinstance(noise, torch.Generator) else [
+                    _block_noise(batch_noise, models, device) for batch_noise in noise]
+                return getattr(fns, name)(block, dataset.to(device), rows, block_noise)
 
-        return states.map_blocks(block_epoch)
+            return states.map_blocks(block_epoch)
+        return fn
 
     return {
         "training_fct": over_blocks("training_fct"),
         "train_step": over_blocks("train_step"),
-        "train_epoch": train_epoch,
+        "fit_epoch": over_epochs("fit_epoch"),
+        "train_epoch": over_epochs("train_epoch"),
     }
 
 

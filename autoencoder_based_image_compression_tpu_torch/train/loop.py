@@ -24,6 +24,7 @@ from autoencoder_based_image_compression_tpu_torch.ops.metrics import (
     convert_approx_entropy,
 )
 from autoencoder_based_image_compression_tpu_torch.ops.quantization import cast_bt601
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 from autoencoder_based_image_compression_tpu_torch.utils.image import subdivide_set
 
@@ -78,14 +79,16 @@ def device_resident_dataset(training_uint8, device="cuda"):
 
 def preliminary_fitting(training_uint8, state, step_fns, batch_size, nb_epochs_fitting, noise):
     """Density pre-fit epochs before the first joint training epoch
-    (reference ``eae/batching.py:102-127``). ``training_uint8`` may be a
-    numpy stack or a :func:`device_resident_dataset` tensor."""
+    (reference ``eae/batching.py:102-127``): ``training_fct`` over the
+    batches in the set's order. ``training_uint8`` may be a numpy stack
+    or a :func:`device_resident_dataset` tensor. Each epoch is the step
+    functions' ``fit_epoch``: the replays of one captured ``training_fct``
+    on the card, the eager loop on the CPU."""
     nb_batches = subdivide_set(training_uint8.shape[0], batch_size)
     dataset = _on_device(training_uint8, state.step.device)
+    rows = rows_in_order(nb_batches, batch_size)
     for _ in range(nb_epochs_fitting):
-        for j in range(nb_batches):
-            batch = dataset[j * batch_size:(j + 1) * batch_size]
-            state = step_fns["training_fct"](state, batch, noise)
+        state = step_fns["fit_epoch"](state, dataset, rows, noise)
     return state
 
 

@@ -53,26 +53,26 @@ class TrainState(NamedTuple):
 def map_state(fn, *states):
     """``fn`` applied leaf by leaf across states of one structure: the
     state whose every leaf is ``fn(leaf_of_states[0], leaf_of_states[1],
-    ...)``."""
-    def leaf(get):
-        return fn(*[get(state) for state in states])
+    ...)``.
 
-    def group(get):
-        return {name: fn(*[get(state)[name] for state in states])
-                for name in get(states[0])}
-
-    return TrainState(
-        params=group(lambda s: s.params),
-        density=DensityTable(leaf(lambda s: s.density.parameters),
-                             leaf(lambda s: s.density.nb_itvs_per_side)),
-        bin_widths=leaf(lambda s: s.bin_widths),
-        opt_eae=AdamState(leaf(lambda s: s.opt_eae.count), group(lambda s: s.opt_eae.mu),
-                          group(lambda s: s.opt_eae.nu)),
-        step=leaf(lambda s: s.step))
+    The structure is the first state's: named tuples are mapped field by
+    field, dicts key by key (in the first state's order), and anything
+    else is a leaf. So it takes every state of the port alike: a
+    :class:`TrainState`, a stacked ladder state, an SVHN
+    ``DenseEaeState`` or ``VaeState``, a ``DensityTable``; and the
+    other states may hold other leaves at the same places (the specs
+    of ``parallel.sharding``)."""
+    first = states[0]
+    if isinstance(first, dict):
+        return {name: map_state(fn, *[state[name] for state in states]) for name in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(map_state(fn, *[getattr(state, name) for state in states])
+                             for name in first._fields))
+    return fn(*states)
 
 
 def state_leaves(state):
-    """The state's tensors as one flat list, in the fixed order in which
+    """The state's leaves as one flat list, in the fixed order in which
     :func:`map_state` visits them (the flat view of a state)."""
     leaves = []
     map_state(lambda leaf: leaves.append(leaf) or leaf, state)
@@ -93,13 +93,8 @@ def clone_state(state):
 
 
 def state_to(state, device):
-    """The state (a :class:`TrainState`, or an SVHN state: named tuples
-    and dicts of tensors) with every leaf moved to ``device``."""
-    if isinstance(state, torch.Tensor):
-        return state.to(device)
-    if isinstance(state, dict):
-        return {name: state_to(leaf, device) for (name, leaf) in state.items()}
-    return type(state)(*(state_to(leaf, device) for leaf in state))
+    """The state with every leaf moved to ``device``."""
+    return map_state(lambda leaf: leaf.to(device), state)
 
 
 def init_adam(params):

@@ -30,9 +30,9 @@ from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.ops import density as dens
 from autoencoder_based_image_compression_tpu_torch.ops.quantization import add_uniform_noise
-from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import (
-    GraphedEpoch,
-    check_noises,
+from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import (  # noqa: F401
+    epoch_fn,
+    epoch_over_rows,
 )
 from autoencoder_based_image_compression_tpu_torch.train.state import adam_update
 
@@ -155,20 +155,6 @@ def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, 
                           step=state.step + 1)
 
 
-def epoch_over_rows(train_step, state, dataset, rows, noise):
-    """``train_step`` over the ``(nb_batches, batch_size)`` row indices of
-    a device-resident uint8 dataset, each batch gathered on the device;
-    ``noise`` is a generator or one ``train_step`` noise per batch. The
-    eager loop: ``train_epoch`` takes it for a state on the CPU."""
-    rows = torch.as_tensor(rows, device=dataset.device).to(torch.int64)
-    check_noises(noise, rows.shape[0])
-    for (i, batch_rows) in enumerate(rows):
-        batch = dataset.index_select(0, batch_rows)
-        step_noise = noise if isinstance(noise, torch.Generator) else noise[i]
-        state = train_step(state, batch, step_noise)
-    return state
-
-
 def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERVAL,
                   max_itvs=csts.MAX_ITVS_PER_SIDE, bw_warmup_steps=0, bw_warmup_max=1.0):
     """Builds the training and evaluation functions of one experiment.
@@ -177,6 +163,11 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
 
     - ``training_fct(state, batch, noise)``: density-only update (the
       pre-fitting epochs)
+    - ``fit_epoch(state, dataset, rows, noise)``: ``training_fct`` over
+      the rows (the pre-fit epoch's batches in order,
+      ``epoch_graph.rows_in_order``), graphed on the card and the eager
+      loop on the CPU as ``train_epoch`` is; the counterpart of the JAX
+      package's jitted ``training_fct``, one program a batch
     - ``training_eae_bw(state, batch, noise)``: autoencoder + bin-width
       update
     - ``train_step(state, batch, noise)``: the per-batch alternation,
@@ -210,12 +201,6 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
                                   else noise)
         return training_eae_bw(training_fct(state, batch, noise_fct), batch, noise_eae)
 
-    graphed_epoch = GraphedEpoch(train_step)
-
-    def train_epoch(state, dataset, rows, noise):
-        if state.step.is_cuda:
-            return graphed_epoch(state, dataset, rows, noise)
-        return epoch_over_rows(train_step, state, dataset, rows, noise)
 
     @torch.no_grad()
     def evaluation(state, batch, noise):
@@ -242,6 +227,7 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
         "training_fct": training_fct,
         "training_eae_bw": training_eae_bw,
         "train_step": train_step,
-        "train_epoch": train_epoch,
+        "fit_epoch": epoch_fn(training_fct),
+        "train_epoch": epoch_fn(train_step),
         "evaluation": evaluation,
     }

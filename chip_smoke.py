@@ -37,8 +37,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
 4. the fixed-bin-width ``roundtrip_batched`` (fused GDN+quantise);
 5. training at full width, both architectures (learned and fixed bin
    widths), on synthetic 256 x 256 crops at batch 10: a fresh state, one
-   density pre-fit epoch, three epochs of 12 ``train_step``s, each the
-   replays of one captured step (``train/epoch_graph.py``); fails unless
+   density pre-fit epoch, three epochs of 12 ``train_step``s, the pre-fit
+   and the epochs each the replays of one captured step
+   (``train/epoch_graph.py``; the pre-fit's GDN launches counted at its
+   capture, two steps' encodes); fails unless
    the density loss falls over the pre-fit, the rate-distortion loss of
    ``evaluation`` (same noise) falls over the steps, the projections
    hold, the gradient of the loss through the kernels agrees with the
@@ -50,7 +52,10 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    the spread of five eager epochs (measured and printed), the returned
    state untouched by the next epoch, no GDN launch counted at a replay;
    ms per step graphed and eager, the device's busy share in the graphed
-   epoch, the captures' seconds and graph pools. Then: checkpoint saved
+   epoch, the captures' seconds and graph pools; the same for the
+   pre-fit epoch (``fit_epoch``, 12 batches in order; a density fit, which
+   amplifies no rounding, holds its 12 steps to the one-step bound, the
+   spread printed beside it). Then: checkpoint saved
    and loaded back equal, a
    params artifact, ``collect_stats`` on held-out crops, and a few
    images served through ``PipelinedCompressor`` with those statistics,
@@ -74,7 +79,9 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    device's busy share and the kernels of a step in a profiler trace
    (cuDNN, GDN, the rest), and every conv site's fprop / dgrad / wgrad
    grouped over the models against seven convs on channel slices. Then
-   the ladder's graphed epoch against its eager loop, as in phase 5;
+   the ladder's graphed epoch and graphed pre-fit against their eager
+   loops, as in phase 5 (the pre-fit: 3 stacked launches a step, counted
+   at its capture);
 7. the rate-distortion study on the committed trained models and the 24
    images of ``synthetic_kodak(seed=14)``, through ``eval/rd_sweep``: the
    one-model-per-gamma family (entropy rates) and both multiplier
@@ -138,7 +145,13 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    200,000 with its time; one VAE step card against CPU and ``cli/train_vae``
    train (-VLB must fall), reconstruct and generate; ms per alternation, per
    reference epoch of 800 batches and per VAE step, and the kernels' time
-   in a profiler trace of each;
+   in a profiler trace of each. Every step of these paths is the replays
+   of a captured graph: the overfit harness and ``cli/train_svhn`` make two
+   captures (pre-fit, alternation), ``cli/train_vae`` one (its checkpoint
+   loads back at the expected step), the study one for its 8 fits; the
+   study at 200,000 samples graphed against its fits run eagerly. Then
+   the dense alternation, the dense pre-fit, the VAE step and the study's
+   fit graphed against their eager loops, as in phase 5;
 11. the latent-analysis tooling on both trained models, from full
    checkpoints in a temporary root, on ``synthetic_kodak(seed=14)``:
    ``cli/latent_analysis fit`` (finite positive scales, latents within
@@ -163,8 +176,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    multiplier, a second call trains and launches nothing, and a third
    call after one ``model_2.json`` is marked interrupted retrains that
    model alone; seconds per stage, the training stage through graphed
-   epochs (one capture a part), the ladder's parts one stacked program a
-   step; (b) ``scripts/stability_study``:
+   epochs (one capture a part, and one for part 0's pre-fit), the ladder's
+   parts one stacked program a step; (b) ``scripts/stability_study``:
    ``average_gamma_params`` over (a)'s parts equal bit for bit to the
    float64 mean of the loaded checkpoints cast to float32, then the
    evaluation of the committed ``results/eae_avg/`` models held against
@@ -1260,10 +1273,14 @@ def philox_draws_equal():
 
 
 def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_epoch=None,
-                       view=None, one_step=None):
-    """``train_epoch`` on the card (replays of a captured step, with
-    ``train/epoch_graph.py``) against the eager loop
-    (``train.step.epoch_over_rows``) from one state, at full width.
+                       view=None, one_step=None, name="train", rows=None):
+    """``fns[name + "_epoch"]`` on the card (replays of a captured step,
+    with ``train/epoch_graph.py``) against the eager loop
+    (``epoch_graph.epoch_over_rows``) from one state, at full width: the
+    ``train_epoch`` of ``fns["train_step"]`` (``name="train"``) or the
+    pre-fit ``fit_epoch`` of ``fns["training_fct"]`` (``name="fit"``),
+    over ``rows`` (by default ``GRAPHED_STEPS`` batches of a permutation
+    of the set, at the training batch).
 
     One step, with per-batch noise (and with a generator where the
     graph's draws equal the eager ones): within ``ONE_STEP_GAP`` of each
@@ -1274,17 +1291,27 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
     ``GRAPHED_EPOCHS`` graphed epochs must lie within it of its nearest
     eager epoch (each run, eager or graphed, differs from the others by
     its own draw of the atomics' order, and a single graphed epoch against
-    three eager ones fell outside on a right graph). An epoch fed other
-    noise is printed beside it for scale.
+    three eager ones fell outside on a right graph). A pre-fit
+    (``name="fit"``) only fits a density by SGD, which amplifies nothing:
+    its runs differ by the order of the density gradient's atomic sums
+    alone, a few float32 roundings, and the graph's replays, which launch
+    back to back, sum in another typical order than the eager loop, so a
+    right graphed epoch may sit just outside the eager spread (it read
+    7.2e-08 against 7.16e-08 of the table's norm, and 4.5e-07 against
+    4.04e-07). Its ``GRAPHED_STEPS`` steps are held to ``ONE_STEP_GAP`` of
+    each leaf's largest entry of the nearest eager epoch, the one-step
+    bound; the spread is printed beside it. An epoch fed other noise is
+    printed beside either for scale.
     Then: the state the first epoch returned does not move
     when the next epoch runs, a graphed epoch counts no GDN launch, and
     the ms per step graphed and eager, the kernels' time a step in a
     trace of the graphed epoch, the captures' seconds and memory.
-    ``step_noise(i)`` is batch ``i``'s explicit ``train_step`` noise.
+    ``step_noise(i)`` is batch ``i``'s explicit step noise; ``None`` for
+    a step that draws nothing (the entropy study's fit).
     ``eager_epoch(state, dataset, rows, noise)`` is the eager loop (by
-    default ``epoch_over_rows`` of ``fns["train_step"]``) and ``view``
-    turns a returned state into a :class:`TrainState` (a sharded
-    ladder's ``fetch``). ``one_step(graphed, eager)``, where given, holds
+    default ``epoch_over_rows`` of the step) and ``view`` turns a returned
+    state into one of a single structure (a sharded ladder's ``fetch``).
+    ``one_step(graphed, eager)``, where given, holds
     the one step instead of ``ONE_STEP_GAP`` (raising outside its bound)
     and returns its bound's name. Returns ``(graphed ms a step, eager ms
     a step)``."""
@@ -1294,30 +1321,35 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
         clone_state,
         state_leaves,
     )
-    from autoencoder_based_image_compression_tpu_torch.train.step import epoch_over_rows
 
     if torch.backends.cudnn.deterministic:
         raise AssertionError("torch.backends.cudnn.deterministic is set before the capture")
-    order = numpy.random.default_rng(30).permutation(dataset.shape[0])
-    rows = order[:GRAPHED_STEPS * TRAIN_BATCH].reshape(GRAPHED_STEPS, TRAIN_BATCH)
-    noises = [step_noise(i) for i in range(GRAPHED_STEPS)]
-    shared = torch.Generator(DEVICE)
-    forms = {"per-batch noise": lambda nb: noises[:nb],
-             "generator": lambda nb: shared.manual_seed(41)}
+    if rows is None:
+        order = numpy.random.default_rng(30).permutation(dataset.shape[0])
+        rows = order[:GRAPHED_STEPS * TRAIN_BATCH].reshape(GRAPHED_STEPS, TRAIN_BATCH)
+    step = fns["train_step" if name == "train" else "training_fct"]
+    epoch = fns[f"{name}_epoch"]
+    if step_noise is None:
+        forms = {"no noise": lambda nb: None}
+    else:
+        noises = [step_noise(i) for i in range(GRAPHED_STEPS)]
+        shared = torch.Generator(DEVICE)
+        forms = {"per-batch noise": lambda nb: noises[:nb],
+                 "generator": lambda nb: shared.manual_seed(41)}
     captures = len(epoch_graph.CAPTURES)
 
     view = view or (lambda st: st)
-    eager_epoch = eager_epoch or (lambda st, data, rows_, noise_: epoch_over_rows(
-        fns["train_step"], st, data, rows_, noise_))
+    eager_epoch = eager_epoch or (lambda st, data, rows_, noise_: epoch_graph.epoch_over_rows(
+        step, st, data, rows_, noise_))
 
     def eager(nb, noise):
         return view(eager_epoch(state, dataset, rows[:nb], noise(nb)))
 
     for (form, noise) in forms.items():
-        graphed = view(fns["train_epoch"](state, dataset, rows[:1], noise(1)))
+        graphed = view(epoch(state, dataset, rows[:1], noise(1)))
         expected = eager(1, noise)
         (gap, spread) = (state_gap(graphed, expected), state_gap(eager(1, noise), expected))
-        held = form == "per-batch noise" or draws_equal
+        held = form != "generator" or draws_equal
         bound = (f"{ONE_STEP_GAP:g}" if one_step is None or not held
                  else one_step(graphed, expected))
         print(f"  one graphed step against one eager step, {tag}, {form}: largest gap "
@@ -1326,36 +1358,47 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
                  "[not held: the graph's draws differ from the eager ones]"))
         if held and one_step is None and not gap <= ONE_STEP_GAP:
             raise AssertionError(f"{tag}: one graphed step is {gap} off the eager step")
-    form = "generator" if draws_equal else "per-batch noise"
+    form = ("no noise" if step_noise is None else "generator" if draws_equal
+            else "per-batch noise")
     noise = forms[form]
     eagers = [eager(GRAPHED_STEPS, noise) for _ in range(EAGER_EPOCHS)]
-    returned = [fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
+    returned = [epoch(state, dataset, rows, noise(GRAPHED_STEPS))
                 for _ in range(GRAPHED_EPOCHS)]
     graphs = [view(graphed) for graphed in returned]
-    other = view(eager_epoch(state, dataset, rows,
-                             [step_noise(GRAPHED_STEPS + i) for i in range(GRAPHED_STEPS)]))
     spread = max(state_spread(a, b) for (a, b) in itertools.combinations(eagers, 2))
     nearest = [min(state_spread(graphed, e) for e in eagers) for graphed in graphs]
+    nearest_gap = [min(state_gap(graphed, e) for e in eagers) for graphed in graphs]
+    among = state_spread(graphs[0], graphs[1])
     finite = all(bool(torch.isfinite(leaf.double()).all())
                  for g in graphs for leaf in state_leaves(g))
+    if step_noise is None:
+        other = "none (the step draws nothing)"
+    else:
+        other = view(eager_epoch(state, dataset, rows, [step_noise(GRAPHED_STEPS + i)
+                                                        for i in range(GRAPHED_STEPS)]))
+        other = f"{min(state_spread(other, e) for e in eagers):.3e}"
     print(f"  {GRAPHED_EPOCHS} graphed epochs of {GRAPHED_STEPS} steps against "
           f"{EAGER_EPOCHS} eager epochs, {tag}, {form}: gap to the nearest eager epoch "
-          + " and ".join(f"{gap:.3e}" for gap in nearest) + " of a leaf's norm; eager "
-          f"against eager up to {spread:.3e} [one graphed epoch within that spread]; an epoch "
-          f"fed other noise {min(state_spread(other, e) for e in eagers):.3e}")
-    start_step = view(state).step.to(graphs[0].step.device)
-    if not (min(nearest) <= spread and finite
-            and all(torch.equal(g.step, start_step + GRAPHED_STEPS) for g in graphs)):
+          + " and ".join(f"{gap:.3e}" for gap in nearest) + " of a leaf's norm ("
+          + " and ".join(f"{gap:.3e}" for gap in nearest_gap) + " of its largest entry); eager "
+          f"against eager up to {spread:.3e}, graphed against graphed {among:.3e} "
+          + ("[one graphed epoch within that spread]" if name == "train" else
+             f"[a density fit: one graphed epoch within {ONE_STEP_GAP:g} of each leaf's largest "
+             "entry]") + f"; an epoch fed other noise {other}")
+    steps_equal = all(torch.equal(g.step, eagers[0].step.to(g.step.device)) for g in graphs
+                      if hasattr(g, "step"))
+    held = (min(nearest) <= spread if name == "train" else min(nearest_gap) <= ONE_STEP_GAP)
+    if not (held and finite and steps_equal):
         raise AssertionError(f"{tag}: the graphed epochs are {nearest} off the eager epochs "
-                             f"(spread {spread}), finite {finite}")
+                             f"(spread {spread}), finite {finite}, steps equal {steps_equal}")
     kept = clone_state(graphs[0])
-    fns["train_epoch"](returned[0], dataset, rows, noise(GRAPHED_STEPS))
+    epoch(returned[0], dataset, rows, noise(GRAPHED_STEPS))
     if not all(torch.equal(a, b) for (a, b) in zip(state_leaves(view(returned[0])),
                                                     state_leaves(kept))):
         raise AssertionError(f"{tag}: the next graphed epoch moved the state returned before")
     torch.cuda.synchronize()
     gk.reset_launch_counts()
-    fns["train_epoch"](state, dataset, rows, noise(GRAPHED_STEPS))
+    epoch(state, dataset, rows, noise(GRAPHED_STEPS))
     torch.cuda.synchronize()
     expect_launches(f"graphed epoch ({GRAPHED_STEPS} replays, no capture), {tag}",
                     dict(gk.LAUNCHES), {})
@@ -1363,11 +1406,10 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
     # Times: CUDA events round one epoch of GRAPHED_STEPS steps, median of 5.
     eager_ms = _median_ms(lambda: eager_epoch(state, dataset, rows, noise(GRAPHED_STEPS)),
                           GRAPHED_STEPS, 5)
-    graphed_ms = _median_ms(lambda: fns["train_epoch"](state, dataset, rows,
-                                                       noise(GRAPHED_STEPS)),
+    graphed_ms = _median_ms(lambda: epoch(state, dataset, rows, noise(GRAPHED_STEPS)),
                             GRAPHED_STEPS, 5)
-    (traced_ms, _) = traced_device_ms(lambda: fns["train_epoch"](state, dataset, rows,
-                                                                 noise(GRAPHED_STEPS)), 2)
+    (traced_ms, _) = traced_device_ms(lambda: epoch(state, dataset, rows,
+                                                    noise(GRAPHED_STEPS)), 2)
     made = epoch_graph.CAPTURES[captures:]
     print(f"  {tag}: {graphed_ms:.3f} ms a step graphed against {eager_ms:.3f} ms eager "
           f"(eager / graphed {eager_ms / graphed_ms:.2f}), epochs of {GRAPHED_STEPS} steps "
@@ -1394,6 +1436,7 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         PipelinedCompressor,
     )
     from autoencoder_based_image_compression_tpu_torch.train import checkpoint, loop
+    from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
     from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
     from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns
     from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
@@ -1417,9 +1460,18 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         full = loop.evaluate_full(state, eval_batch, fns, TRAIN_GAMMA, eval_noise)
         return (full["loss_density"], full["scaled_approx_entropy"] + full["rec_error"], full)
 
-    gk.reset_launch_counts()
+    per_step = {name: sum(1 for (variant, _) in TRAIN_SITES[learn_bin_widths]
+                           if variant == name) for name in ("gdn_f32", "igdn_f32")}
+    gdn_encode = per_step["gdn_f32"] // 2
     (density_0, rd_0, _) = indicators(state)
+    # The pre-fit epoch: the replays of one captured training_fct, which
+    # encodes once a step (counted at its warm-up step and its capture).
+    gk.reset_launch_counts()
     state = loop.preliminary_fitting(dataset, state, fns, TRAIN_BATCH, 1, noise)
+    prefit_launches = dict(gk.LAUNCHES)
+    expect_launches(f"pre-fit, {tag} ({nb_batches} batches, one capture)", prefit_launches,
+                    {"gdn_f32": GRAPH_PREP_STEPS * gdn_encode})
+    gk.reset_launch_counts()
     (density_1, rd_1, _) = indicators(state)
     shuffle = numpy.random.default_rng(3)
     epoch_seconds = []
@@ -1434,15 +1486,12 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     launches = dict(gk.LAUNCHES)
     steps = TRAIN_EPOCHS * nb_batches
     sites = TRAIN_SITES[learn_bin_widths]
-    per_step = {name: sum(1 for (variant, _) in sites if variant == name)
-                for name in ("gdn_f32", "igdn_f32")}
-    # Evaluations (3) and pre-fit steps encode (and the evaluations
-    # decode) beside the steps' launches; the epochs are replays of one
-    # captured step, counted at its warm-up step and its capture.
-    gdn_encode = per_step["gdn_f32"] // 2
+    # Two evaluations encode and decode beside the steps' launches; the
+    # epochs are replays of one captured step, counted at its warm-up
+    # step and its capture.
     expect_launches(f"training, {tag}", launches, {
-        "gdn_f32": GRAPH_PREP_STEPS * per_step["gdn_f32"] + (3 + nb_batches) * gdn_encode,
-        "igdn_f32": (GRAPH_PREP_STEPS + 3) * per_step["igdn_f32"]})
+        "gdn_f32": GRAPH_PREP_STEPS * per_step["gdn_f32"] + 2 * gdn_encode,
+        "igdn_f32": (GRAPH_PREP_STEPS + 2) * per_step["igdn_f32"]})
     print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
           f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
           f"{steps} train_steps (before the pre-fit {rd_0:.6e}); rec error "
@@ -1485,6 +1534,9 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         print(f"    {ms:.4f} ms a step, {count:.1f} launches: {name}")
     hold_graphed_epoch(tag, fns, state, dataset, lambda i: (
         _uniform_noise(latent, 60 + 2 * i), _uniform_noise(latent, 61 + 2 * i)), draws_equal)
+    hold_graphed_epoch(f"pre-fit, {tag}", fns, state, dataset,
+                       lambda i: _uniform_noise(latent, 90 + i), draws_equal, name="fit",
+                       rows=rows_in_order(GRAPHED_STEPS, TRAIN_BATCH))
 
     with tempfile.TemporaryDirectory() as root:
         exp_dir = os.path.join(root, experiment_suffix(1.0, TRAIN_GAMMA, learn_bin_widths))
@@ -1529,7 +1581,7 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
           f"{bits.sum() / images[..., 0].size:.4f} bpp, PSNR mean {numpy.mean(psnrs):.4f} dB")
     if not numpy.all(numpy.isfinite(psnrs)):
         raise AssertionError(f"{tag}: PSNR {psnrs}")
-    return {f"training, {tag}": launches}
+    return {f"training, {tag}": launches, f"pre-fit, {tag}": prefit_launches}
 
 
 def _run_printing(main, args, keep=None):
@@ -1558,6 +1610,7 @@ def phase_ladder(draws_equal):
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import checkpoint, ladder, loop
+    from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
     from autoencoder_based_image_compression_tpu_torch.train.state import init_train_state
     from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns
     from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
@@ -1591,8 +1644,15 @@ def phase_ladder(draws_equal):
     start = ladder.init_ladder_state(torch.Generator().manual_seed(seed), gammas, 1.0,
                                      device=DEVICE)
     before = indicators(start)
+    # The pre-fit: the replays of one captured stacked training_fct, which
+    # encodes once a step (3 stacked GDN sites), counted at its warm-up
+    # step and its capture.
+    gk.reset_launch_counts()
     prefit = loop.preliminary_fitting(dataset, start, fns, TRAIN_BATCH, 1,
                                       torch.Generator(DEVICE).manual_seed(seed + 1))
+    prefit_launches = dict(gk.LAUNCHES)
+    expect_launches(f"ladder pre-fit ({nb_batches} batches, one capture)", prefit_launches,
+                    {"gdn_f32_stacked": 3 * GRAPH_PREP_STEPS})
     fitted = indicators(prefit)
 
     gk.reset_launch_counts()
@@ -1633,12 +1693,13 @@ def phase_ladder(draws_equal):
         (_, printed_1) = _run_printing(train_ladder.main, cli_args(1))
         resumed = load_part(2)
     # Part 0, every GDN site one stacked launch for the seven models: the
-    # pre-fit encodes once a batch; each of the two evaluations (training
+    # pre-fit encodes once a step; each of the two evaluations (training
     # and validation portion) encodes and decodes once; a ladder step is 6
-    # GDN + 3 IGDN, and the epoch's 12 are replays of one captured step
-    # (counted at its warm-up and capture).
+    # GDN + 3 IGDN. The pre-fit's 12 steps and the epoch's 12 are the
+    # replays of one captured step each (counted at its warm-up and
+    # capture).
     expect_launches("ladder training (part 0)", part_launches, {
-        "gdn_f32_stacked": 3 * (nb_batches + 2 + 2 * GRAPH_PREP_STEPS),
+        "gdn_f32_stacked": 3 * (GRAPH_PREP_STEPS + 2 + 2 * GRAPH_PREP_STEPS),
         "igdn_f32_stacked": 3 * (2 + GRAPH_PREP_STEPS)})
     epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
     if epoch is None or f"global step {nb_batches})" not in printed_1:
@@ -1759,27 +1820,31 @@ def phase_ladder(draws_equal):
     hold_graphed_epoch(f"the ladder of {nb_models}", fns, trained, dataset, lambda i: [
         (_uniform_noise(latent, 200 + 20 * i + 2 * k), _uniform_noise(latent, 201 + 20 * i + 2 * k))
         for k in range(nb_models)], draws_equal)
-    return {"ladder training": part_launches}
+    hold_graphed_epoch(f"the ladder's pre-fit ({nb_models} models)", fns, trained, dataset,
+                       lambda i: [_uniform_noise(latent, 400 + 20 * i + k)
+                                  for k in range(nb_models)], draws_equal, name="fit",
+                       rows=rows_in_order(GRAPHED_STEPS, TRAIN_BATCH))
+    return {"ladder training": part_launches, "ladder pre-fit": prefit_launches}
 
 
 def _campaign_launches(args, one_model=False):
     """GDN / IGDN launches of the campaign's training stage: every part of
     the eight models, or (``one_model``) of one fixed model's last part.
-    A part: the pre-fit (part 0 only) encodes once a batch, each epoch's
+    A part: the pre-fit (part 0 only) encodes once a step, each epoch's
     two evaluations encode and decode once, a step encodes twice (the
     density and autoencoder phases) and decodes once, and the part's
-    epochs replay one captured step, counted at its warm-up and its
-    capture; 3 sites a fixed-bin-width model, 2 for the learned one. The
-    ladder's models share each launch of the stacked kernel; a model
-    retrained alone launches the single-model kernel."""
-    nb_batches = args.nb_training // args.batch_size
+    pre-fit and epochs replay one captured step each, counted at its
+    warm-up and its capture; 3 sites a fixed-bin-width model, 2 for the
+    learned one. The ladder's models share each launch of the stacked
+    kernel; a model retrained alone launches the single-model kernel."""
     launches = collections.Counter()
     models = ([("", 3)] if one_model else [("_stacked", 3), ("", 2)])
     parts = [args.nb_parts - 1] if one_model else range(args.nb_parts)
     for idx_part in parts:
         for (variant, sites) in models:
             launches["gdn_f32" + variant] += sites * (
-                (nb_batches if idx_part == 0 else 0) + 2 * args.nb_epochs + 2 * GRAPH_PREP_STEPS)
+                (GRAPH_PREP_STEPS if idx_part == 0 else 0) + 2 * args.nb_epochs
+                + 2 * GRAPH_PREP_STEPS)
             launches["igdn_f32" + variant] += sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
     return dict(launches)
 
@@ -2372,12 +2437,16 @@ def _svhn_state_gaps(got, expected):
     return (worst, outside, entries)
 
 
-def phase_svhn(card):
+def phase_svhn(card, draws_equal):
     """The SVHN side at full width on the card: the dense EAE's two
     phases and the VAE's step held against the port's CPU run from one
     state and one noise, the overfit harness, ``cli/train_svhn`` then
-    ``cli/reconstruct_svhn``, the entropy study, and ``cli/train_vae``.
-    Its matmuls are ``torch.matmul`` in true fp32; no GDN kernel runs."""
+    ``cli/reconstruct_svhn``, the entropy study, and ``cli/train_vae``,
+    each step the replays of a captured graph (one capture a path); then
+    the graphed dense alternation, dense pre-fit, VAE step and entropy
+    fit against their eager loops (:func:`hold_graphed_epoch`), and the
+    study graphed against eager. Its matmuls are ``torch.matmul`` in true
+    fp32; no GDN kernel runs."""
     from autoencoder_based_image_compression_tpu_torch.cli import (
         compare_entropy_approximations,
         overfit_svhn,
@@ -2391,10 +2460,17 @@ def phase_svhn(card):
         synthetic_svhn,
     )
     from autoencoder_based_image_compression_tpu_torch.models import dense_eae, vae
+    from autoencoder_based_image_compression_tpu_torch.ops import density as dens
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
-    from autoencoder_based_image_compression_tpu_torch.train import checkpoint
+    from autoencoder_based_image_compression_tpu_torch.train import checkpoint, epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train.state import state_to
     from autoencoder_based_image_compression_tpu_torch.utils.naming import experiment_suffix
+
+    def with_captures(run):
+        """``(run(), the captures it made)``."""
+        before = len(epoch_graph.CAPTURES)
+        result = run()
+        return (result, epoch_graph.CAPTURES[before:])
 
     digits_uint8 = synthetic_svhn(SVHN_DIGITS, seed=0)
     (mean, std) = compute_preprocessing_stats(digits_uint8)
@@ -2442,21 +2518,28 @@ def phase_svhn(card):
     alternation_ms = _median_ms(alternation, 1, 9)
     alternation_trace = traced_device_ms(alternation, 10, top=4)
 
-    # --- (2) the overfit harness: 10 digits, 20 pre-fits, 200 alternations.
-    (objectives, _) = _run_printing(overfit_svhn.main, [
-        "--nb_examples", "10", "--nb_epochs", "200", "--learn_bin_width", "--device", DEVICE])
+    # --- (2) the overfit harness: 10 digits, 20 pre-fits, 200 alternations,
+    # one replay of its captured alternation an epoch.
+    ((objectives, _), made) = with_captures(lambda: _run_printing(overfit_svhn.main, [
+        "--nb_examples", "10", "--nb_epochs", "200", "--learn_bin_width", "--device", DEVICE]))
     print(f"  overfit_svhn (10 digits, 20 pre-fits, 200 alternations): objective "
-          + " -> ".join(f"{o:.4f}" for o in objectives))
+          + " -> ".join(f"{o:.4f}" for o in objectives) + f"; {len(made)} captures (pre-fit, "
+          "alternation)")
     if not objectives[-1] < objectives[0]:
         raise AssertionError(f"overfit harness: the objective did not fall {objectives}")
+    if len(made) != 2:
+        raise AssertionError(f"overfit harness: {len(made)} captures, expected 2")
 
     with tempfile.TemporaryDirectory() as root:
         # --- (3) cli/train_svhn, then cli/reconstruct_svhn on its checkpoint.
         t0 = time.perf_counter()
-        (trained, _) = _run_printing(train_svhn.main, [
+        ((trained, _), made) = with_captures(lambda: _run_printing(train_svhn.main, [
             "1.0", str(SVHN_GAMMA), "--learn_bin_width", "--synthetic", "--nb_epochs_training",
-            str(SVHN_EPOCHS), "--results_root", root, "--device", DEVICE])
+            str(SVHN_EPOCHS), "--results_root", root, "--device", DEVICE]))
         train_s = time.perf_counter() - t0
+        if len(made) != 2:
+            raise AssertionError(f"train_svhn: {len(made)} captures, expected 2 (pre-fit, "
+                                 "alternation)")
         exp_dir = os.path.join(root, experiment_suffix(1.0, SVHN_GAMMA, True))
         template = dense_eae.init_dense_eae_state(torch.Generator().manual_seed(5),
                                                   device=DEVICE)
@@ -2475,7 +2558,8 @@ def phase_svhn(card):
             "1.0", str(SVHN_GAMMA), "--learn_bin_width", "--results_root", root, "--device",
             DEVICE])
         print(f"  cli/train_svhn, {SVHN_EPOCHS} epochs of {SVHN_DIGITS // SVHN_BATCH} batches on "
-              f"the card: {train_s:.2f} s; checkpoint loads back equal to the trained state "
+              f"the card, graphed (one capture for the pre-fit, one for the {SVHN_EPOCHS} "
+              f"epochs): {train_s:.2f} s; checkpoint loads back equal to the trained state "
               f"(step {int(loaded.step)}); cli/reconstruct_svhn: rate falls from {rates[0]:.4f} "
               f"to {rates[-1]:.4f} bpp over the multipliers")
         if not (numpy.all(numpy.diff(rates) <= 1e-12) and numpy.all(numpy.isfinite(psnrs))):
@@ -2501,16 +2585,21 @@ def phase_svhn(card):
         vae_root = os.path.join(root, "vae")
         common = ["--results_root", vae_root, "--device", DEVICE, "--path_to_training_data",
                   os.path.join(root, "missing.npy")]
-        (losses, _) = _run_printing(train_vae.main,
-                                     ["train", "--nb_epochs_training", str(SVHN_EPOCHS)] + common)
+        ((losses, _), made) = with_captures(lambda: _run_printing(
+            train_vae.main, ["train", "--nb_epochs_training", str(SVHN_EPOCHS)] + common))
+        saved_vae = checkpoint.load_checkpoint(os.path.join(vae_root, "model"), vae.init_vae_state(
+            torch.Generator().manual_seed(5), device=DEVICE))
         (rec, _) = _run_printing(train_vae.main, ["reconstruct"] + common)
         (samples, _) = _run_printing(train_vae.main, ["generate"] + common)
-        print(f"  cli/train_vae train ({SVHN_EPOCHS} epochs): -VLB "
-              + " -> ".join(f"{v:.2f}" for v in losses)
-              + f"; reconstruct {rec.shape} {rec.dtype}, generate {samples.shape} "
-              f"{samples.dtype} from the saved checkpoint")
-        if not (losses[-1] < losses[0] and rec.shape == (8, 3072) and samples.shape == (16, 3072)):
-            raise AssertionError(f"train_vae: -VLB {losses}, {rec.shape}, {samples.shape}")
+        print(f"  cli/train_vae train ({SVHN_EPOCHS} epochs, graphed, {len(made)} capture): "
+              "-VLB " + " -> ".join(f"{v:.2f}" for v in losses)
+              + f"; the checkpoint loads back at step {int(saved_vae.step)}; reconstruct "
+              f"{rec.shape} {rec.dtype}, generate {samples.shape} {samples.dtype} from it")
+        if not (losses[-1] < losses[0] and rec.shape == (8, 3072) and samples.shape == (16, 3072)
+                and len(made) == 1
+                and int(saved_vae.step) == SVHN_EPOCHS * (SVHN_DIGITS // SVHN_BATCH)):
+            raise AssertionError(f"train_vae: -VLB {losses}, {rec.shape}, {samples.shape}, "
+                                 f"{len(made)} captures, step {int(saved_vae.step)}")
 
     # --- (4) the entropy study: card against CPU, then the default size.
     tables = {}
@@ -2525,11 +2614,25 @@ def phase_svhn(card):
           f"largest gap {gap:.3e} bits [{ENTROPY_GAP_BITS}]")
     if not gap <= ENTROPY_GAP_BITS:
         raise AssertionError(f"entropy study on the card: {gap} bits from the CPU")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _run_printing(compare_entropy_approximations.main, ["--device", DEVICE])
-    print(f"  compare_entropy_approximations at the default 200,000 samples on the card: "
-          f"{time.perf_counter() - t0:.2f} s (8 fits of 400 SGD steps)")
+    # At the default size: graphed (one capture for the 8 fits), then with
+    # each fit's steps as the eager loop on the card.
+    study_s = {}
+    for form in ("graphed", "eager"):
+        def eager_fit(step):
+            return lambda *args: epoch_graph.epoch_over_rows(step, *args)
+
+        with (mock.patch.object(compare_entropy_approximations, "epoch_fn", eager_fit)
+              if form == "eager" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (_, made) = with_captures(lambda: _run_printing(compare_entropy_approximations.main,
+                                                       ["--device", DEVICE]))
+            study_s[form] = time.perf_counter() - t0
+        if len(made) != (form == "graphed"):
+            raise AssertionError(f"entropy study, {form}: {len(made)} captures")
+    print(f"  compare_entropy_approximations at the default 200,000 samples on the card (8 fits "
+          f"of 400 SGD steps): {study_s['graphed']:.2f} s graphed (one capture) against "
+          f"{study_s['eager']:.2f} s eager")
 
     # --- (6) times.
     print(f"  SVHN alternation (training_fct + training_eae_bw, batch {SVHN_BATCH}): "
@@ -2549,6 +2652,44 @@ def phase_svhn(card):
     print(f"  GDN kernel launches on the SVHN side: {launched or 'none'} (dense models only)")
     if launched:
         raise AssertionError(f"the SVHN side launched GDN kernels: {launched}")
+
+    # --- (7) each graphed step against its eager loop at full width, by
+    # the rule of the training phases (each hold counts a replay's GDN
+    # launches, none).
+    dataset = digits.to(DEVICE)
+    shuffle = numpy.random.default_rng(31)
+    order = numpy.concatenate([shuffle.permutation(SVHN_DIGITS) for _ in range(2)])
+    train_rows = order[:GRAPHED_STEPS * SVHN_BATCH].reshape(GRAPHED_STEPS, SVHN_BATCH)
+    fit_rows = epoch_graph.rows_in_order(SVHN_DIGITS // SVHN_BATCH, SVHN_BATCH).repeat(2, 1)
+    graphed = {"SVHN alternation": hold_graphed_epoch(
+        "SVHN alternation", fns, state, dataset, lambda i: _uniform_noise(latent, 500 + i),
+        draws_equal, rows=train_rows)}
+    graphed["SVHN pre-fit"] = hold_graphed_epoch(
+        "SVHN pre-fit", fns, state, dataset, lambda i: _uniform_noise(latent, 600 + i),
+        draws_equal, name="fit", rows=fit_rows[:GRAPHED_STEPS])
+    graphed["VAE step"] = hold_graphed_epoch(
+        "VAE step", {"train_step": step, "train_epoch": vae.make_vae_epoch_fn(1.0)}, vae_card,
+        dataset, lambda i: torch.randn((SVHN_BATCH, 25), device=DEVICE,
+                                       generator=torch.Generator(DEVICE).manual_seed(700 + i)),
+        draws_equal, rows=train_rows)
+    rng = numpy.random.default_rng(32)
+    samples = (rng.normal(0.0, 2.0, 200000) + rng.uniform(-0.5, 0.5, 200000)).astype(
+        numpy.float32)
+    samples = torch.from_numpy(samples).to(DEVICE)[None, :]
+    (ppi, max_itvs) = (compare_entropy_approximations.PPI, compare_entropy_approximations.MAX_ITVS)
+    table = dens.expand_table(dens.init_density_table(1, ppi, max_itvs, device=DEVICE),
+                              samples.abs().max() + 0.5, ppi, max_itvs)
+    fit_step = compare_entropy_approximations._fit_step
+    graphed["entropy fit"] = hold_graphed_epoch(
+        "entropy study's fit, 200,000 samples", {"training_fct": fit_step,
+                                                 "fit_epoch": epoch_graph.epoch_fn(fit_step)},
+        table, samples, None, draws_equal, name="fit",
+        rows=torch.zeros((GRAPHED_STEPS, 1), dtype=torch.int64))
+    for (label, (graphed_ms, eager_ms)) in graphed.items():
+        print(f"  {label}: {graphed_ms:.3f} ms a step graphed, {eager_ms:.3f} ms eager [{card}]")
+    reference_s = SVHN_REFERENCE_BATCHES * graphed["SVHN alternation"][0] / 1e3
+    print(f"  SVHN alternation graphed: {reference_s:.3f} s for one reference epoch of "
+          f"{SVHN_REFERENCE_BATCHES} batches")
     return {"svhn alternation ms": alternation_ms, "vae step ms": vae_ms}
 
 
@@ -2851,8 +2992,11 @@ def phase_campaign(card):
                                                       in part_s.items()) or "none")
                   + f"; their epochs graphed, {len(made)} captures, warm-up and capture "
                   f"{sum(c['warmup_s'] + c['capture_s'] for c in made):.2f} s in all")
-            if DEVICE == "cuda" and len(made) != len(part_s):
-                raise AssertionError(f"{label}: {len(made)} captures for {len(part_s)} parts")
+            # One capture for a part's epochs, one more for part 0's pre-fit.
+            expected_captures = len(part_s) + sum(key.endswith(" part 0") for key in part_s)
+            if DEVICE == "cuda" and len(made) != expected_captures:
+                raise AssertionError(f"{label}: {len(made)} captures for {len(part_s)} parts, "
+                                     f"expected {expected_captures}")
             return (part_s, study)
 
         # First call: everything is trained, collected, exported and evaluated.
@@ -3154,7 +3298,7 @@ def main():
     check_seen_rows(rows_seen)
 
     print(f"phase 10: the SVHN side (dense EAE, VAE, entropy study) [{card}]")
-    phase_svhn(card)
+    phase_svhn(card, draws_equal)
     print(f"phase 11: the latent-analysis tooling on both trained models [{card}]")
     (launches, rows_seen) = phase_tooling(card)
     path_launches.update(launches)
@@ -3193,6 +3337,11 @@ def main():
     on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
     on_path += [(name, "ladder training", shape) for name in STACKED_VARIANTS
                 for shape in TRAIN_SHAPES]
+    # The pre-fit epochs (phases 5, 6): the encoder's GDN sites, counted at
+    # the capture of the replayed training_fct (a replay counts none).
+    on_path += [("gdn_f32", "pre-fit, fixed bin widths", shape) for shape in TRAIN_SHAPES]
+    on_path += [("gdn_f32", "pre-fit, learned bin widths", "T/4")]
+    on_path += [("gdn_f32_stacked", "ladder pre-fit", shape) for shape in TRAIN_SHAPES]
     on_path += [(name, "rd study", shape) for name in ("gdn_f32", "igdn_f32")
                 for shape in SERVE_SHAPES]
     # The distributed layer (phase 9): a band or a data block is half a
