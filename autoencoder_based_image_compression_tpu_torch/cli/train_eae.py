@@ -8,8 +8,9 @@ training (part k resumes from the checkpoint of part k-1 and refuses to
 overwrite part k), 80 epochs per part, batch 10, density pre-fit epochs
 on the first part, the reference's per-epoch indicator block plus
 dead-map counts, pdf areas and numeric-domain monitors (grid saturation,
-negative per-map entropies). Checkpoints are interchangeable with the
-reference package's.
+negative per-map entropies); on the card, after each epoch's wall-clock
+line, its device ms a step by phase (``train.loop.phase_line``).
+Checkpoints are interchangeable with the reference package's.
 """
 
 import argparse
@@ -30,6 +31,7 @@ from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
 from autoencoder_based_image_compression_tpu_torch.train.loop import (
     device_resident_dataset,
     evaluate_full,
+    phase_line,
     preliminary_fitting,
     run_epoch_training,
 )
@@ -202,6 +204,9 @@ def main(args=None):
         print(f"Epoch wall-clock: {epoch_seconds:.2f} s "
               f"({nb_batches / epoch_seconds:.2f} steps/s, "
               f"{pixels / epoch_seconds / 1e6:.2f} Mpix/s)")
+        line = phase_line(step_fns["train_epoch"])
+        if line is not None:
+            print(line)
         save_checkpoint(path_next, state, allow_overwrite=True)
     mark_checkpoint_complete(path_next)
     # Training-curve artifacts (reference training_eae_imagenet.py:259-326).

@@ -10,7 +10,8 @@ the stacked ladder state trains on shared mini-batches.
 ``train_eae`` (per-model checkpoints ``model_{k+1}`` in each experiment
 directory, overwrite refusal, resume from part k-1), fixed-bin-width
 architecture. Checkpoints are interchangeable with the reference
-package's.
+package's. On the card each epoch's wall-clock line is followed by its
+device ms a ladder step by phase (``train.loop.phase_line``).
 """
 
 import argparse
@@ -35,6 +36,7 @@ from autoencoder_based_image_compression_tpu_torch.train.ladder import (
 )
 from autoencoder_based_image_compression_tpu_torch.train.loop import (
     device_resident_dataset,
+    phase_line,
     preliminary_fitting,
     run_epoch_training,
 )
@@ -138,6 +140,9 @@ def main(args=None):
               f"models ({nb_batches / epoch_seconds:.2f} ladder-steps/s, "
               f"{len(gammas) * pixels / epoch_seconds / 1e6:.2f} "
               "model-Mpix/s aggregate)")
+        line = phase_line(fns["train_epoch"])
+        if line is not None:
+            print(line)
         for (k, (gamma, path)) in enumerate(zip(gammas, paths_next)):
             save_checkpoint(path, ladder_slice_state(ladder, k, gamma),
                             allow_overwrite=True)

@@ -73,6 +73,11 @@
 // The ragged row tail is zero-filled on load and masked on store; there is no
 // padding copy. The quantiser divides with IEEE '/' and rounds half to even
 // with rintf, matching jnp.round; build without --use_fast_math.
+//
+// The same library holds the phase marks of a graphed training step
+// (aeic_mark_*, section "marks" below). They replace no TPU kernel: a
+// replayed CUDA graph replays no host range, so a phase boundary that a
+// device trace is to show has to be a kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -537,6 +542,62 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, void* out, i
                 static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(out), rows);
 }
 
+// ---------------------------------------------------------------- marks ----
+//
+// Phase marks of a training step captured in a CUDA graph. A range the host
+// opens while the step is captured is never replayed, so each phase boundary
+// is a kernel of its own, in every replay: one thread that writes the card's
+// %globaltimer (ns) into stamps[step * slots + slot], `step` read from the
+// epoch's device step counter. Each mark has its own kernel name, so that a
+// device trace shows where every phase of every replayed step begins without
+// the program's help. A counter outside [0, rows) writes nothing.
+
+__device__ __forceinline__ void stamp(long long* stamps, const long long* counter,
+                                      long long rows, int slots, int slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long step = *counter;
+  if (step >= 0 && step < rows) stamps[step * slots + slot] = static_cast<long long>(now);
+}
+
+}  // namespace
+
+#define AEIC_MARK_KERNEL(name)                                                   \
+  extern "C" __global__ void name(long long* stamps, const long long* counter,   \
+                                  long long rows, int slots, int slot) {         \
+    stamp(stamps, counter, rows, slots, slot);                                   \
+  }
+
+AEIC_MARK_KERNEL(aeic_mark_step)
+AEIC_MARK_KERNEL(aeic_mark_density)
+AEIC_MARK_KERNEL(aeic_mark_forward)
+AEIC_MARK_KERNEL(aeic_mark_backward)
+AEIC_MARK_KERNEL(aeic_mark_optimizer)
+AEIC_MARK_KERNEL(aeic_mark_step_end)
+AEIC_MARK_KERNEL(aeic_mark_gdn_backward_begin)
+AEIC_MARK_KERNEL(aeic_mark_gdn_backward_end)
+
+namespace {
+
+using MarkKernel = void (*)(long long*, const long long*, long long, int, int);
+
+struct Mark {
+  const char* name;
+  MarkKernel kernel;
+};
+
+const Mark kMarks[] = {
+    {"aeic_mark_step", aeic_mark_step},
+    {"aeic_mark_density", aeic_mark_density},
+    {"aeic_mark_forward", aeic_mark_forward},
+    {"aeic_mark_backward", aeic_mark_backward},
+    {"aeic_mark_optimizer", aeic_mark_optimizer},
+    {"aeic_mark_step_end", aeic_mark_step_end},
+    {"aeic_mark_gdn_backward_begin", aeic_mark_gdn_backward_begin},
+    {"aeic_mark_gdn_backward_end", aeic_mark_gdn_backward_end},
+};
+constexpr int kNumMarks = sizeof(kMarks) / sizeof(kMarks[0]);
+
 }  // namespace
 
 extern "C" {
@@ -578,6 +639,29 @@ int aeic_gdn_quantize_f32(const void* x, const void* gamma, const void* beta,
                                                 tile_rows, stream)
                  : launch_f32_tiled<false, true>(x, gamma, beta, bin_widths, out, rows,
                                                  tile_rows, stream);
+}
+
+// The phase marks: aeic_mark_count() kernels, mark `which` named
+// aeic_mark_name(which). aeic_mark launches one on `stream`: stamps is a
+// (rows, slots) int64 device buffer, counter one int64 on the device.
+int aeic_mark_count() { return kNumMarks; }
+
+const char* aeic_mark_name(int which) {
+  return which >= 0 && which < kNumMarks ? kMarks[which].name : nullptr;
+}
+
+int aeic_mark(int which, void* stamps, const void* counter, int64_t rows, int slots, int slot,
+              void* stream) {
+  if (which < 0 || which >= kNumMarks || slot < 0 || slot >= slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long* stamps_arg = static_cast<long long*>(stamps);
+  const long long* counter_arg = static_cast<const long long*>(counter);
+  long long rows_arg = rows;
+  void* args[] = {&stamps_arg, &counter_arg, &rows_arg, &slots, &slot};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kMarks[which].kernel),
+                                           dim3(1), dim3(1), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 const char* aeic_cuda_error_string(int code) {

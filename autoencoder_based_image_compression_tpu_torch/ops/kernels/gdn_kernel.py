@@ -30,6 +30,11 @@ a detached result quietly.
 can show that its path went through the kernels; ``LAUNCH_ROWS`` counts
 them per variant and row count, so that it can check the kernels at the
 row counts its path gave them.
+
+The library also holds the phase marks of a graphed training step
+(:func:`launch_mark`, placed by ``utils/tracing.py``): one-thread
+kernels, one name a mark, that write the card's global timer into the
+epoch's stamps. They are not counted in ``LAUNCHES``.
 """
 
 import collections
@@ -49,6 +54,7 @@ from autoencoder_based_image_compression_tpu_torch.ops.gdn import (
 from autoencoder_based_image_compression_tpu_torch.ops.quantization import (
     quantize_per_map,
 )
+from autoencoder_based_image_compression_tpu_torch.utils.tracing import mark
 
 CHANNELS = 128
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -139,6 +145,13 @@ def load_library():
         getattr(lib, name).restype = ctypes.c_int
     lib.aeic_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aeic_cuda_error_string.restype = ctypes.c_char_p
+    lib.aeic_mark_count.restype = ctypes.c_int
+    lib.aeic_mark_name.argtypes = [ctypes.c_int]
+    lib.aeic_mark_name.restype = ctypes.c_char_p
+    lib.aeic_mark.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.aeic_mark.restype = ctypes.c_int
+    lib.marks = {lib.aeic_mark_name(i).decode(): i for i in range(lib.aeic_mark_count())}
     _lib = lib
     return lib
 
@@ -259,7 +272,8 @@ class GdnFunction(torch.autograd.Function):
 
     where ``scale`` is ``pool^-0.5`` (GDN) or ``pool^0.5`` (IGDN). The
     pool is computed again in the backward, so the forward saves only
-    its inputs.
+    its inputs. The backward opens with the mark ``gdn_backward_begin``
+    and closes with ``gdn_backward_end`` (``utils/tracing.py``).
     """
 
     @staticmethod
@@ -270,6 +284,7 @@ class GdnFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        mark("gdn_backward_begin")
         (x, gamma, beta) = ctx.saved_tensors
         pool = torch.matmul(torch.square(x), gamma) + beta
         if ctx.inverse:
@@ -285,6 +300,7 @@ class GdnFunction(torch.autograd.Function):
             grad_gamma = torch.matmul(torch.square(x).t(), grad_pool)
         if ctx.needs_input_grad[2]:
             grad_beta = grad_pool.sum(0)
+        mark("gdn_backward_end")
         return (grad_x, grad_gamma, grad_beta, None)
 
 
@@ -325,7 +341,8 @@ class GdnStackedFunction(torch.autograd.Function):
 
     Forward: the stacked kernel on the card, the plain version on the
     CPU. Backward in plain PyTorch: :class:`GdnFunction`'s formulas for
-    each model, as batched matmuls over the model axis.
+    each model, as batched matmuls over the model axis, between the same
+    two marks.
     """
 
     @staticmethod
@@ -336,6 +353,7 @@ class GdnStackedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        mark("gdn_backward_begin")
         (x, gamma, beta) = ctx.saved_tensors
         squares = torch.square(x).transpose(0, 1)  # (M, rows, C)
         pool = torch.matmul(squares, gamma).transpose(0, 1) + beta
@@ -354,6 +372,7 @@ class GdnStackedFunction(torch.autograd.Function):
             grad_gamma = torch.matmul(squares.transpose(-1, -2), by_model)
         if ctx.needs_input_grad[2]:
             grad_beta = grad_pool.sum(0)
+        mark("gdn_backward_end")
         return (grad_x, grad_gamma, grad_beta, None)
 
 
@@ -444,3 +463,20 @@ def gdn_stacked_nhwc(x_nhwc, gamma, beta, inverse=False):
     shape = x_nhwc.shape
     x = x_nhwc.reshape(-1, gamma.shape[0], CHANNELS)
     return gdn_stacked_2d(x, gamma, beta, inverse).reshape(shape)
+
+
+def launch_mark(name, stamps, counter, slot):
+    """Launches the mark kernel ``aeic_mark_<name>`` on the current stream:
+    it writes the card's global timer (ns) into ``stamps[counter, slot]``,
+    ``stamps`` a ``(rows, slots)`` int64 CUDA tensor and ``counter`` the
+    epoch's one-element int64 step counter on the same device."""
+    lib = load_library()
+    which = lib.marks.get("aeic_mark_" + name)
+    if which is None:
+        raise ValueError(f"no mark kernel aeic_mark_{name} in {LIB_PATH}.")
+    if stamps.dtype != torch.int64 or counter.dtype != torch.int64 or stamps.dim() != 2:
+        raise ValueError("the stamps are a (rows, slots) and the counter a (1,) int64 tensor.")
+    status = lib.aeic_mark(which, stamps.data_ptr(), counter.data_ptr(), stamps.shape[0],
+                           stamps.shape[1], slot,
+                           torch.cuda.current_stream(stamps.device).cuda_stream)
+    _raise_on_status(lib, status, "aeic_mark_" + name)

@@ -40,6 +40,7 @@ from autoencoder_based_image_compression_tpu_torch.parallel.sharding import (
     split_batch,
 )
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
+from autoencoder_based_image_compression_tpu_torch.utils.tracing import phase
 
 
 def _to_device(params, device):
@@ -295,6 +296,8 @@ class PipelinedCompressor:
         self.peak_in_flight = 0
         # Phase breakdown (wall/coder/fetch_wait seconds) of the last __call__.
         self.last_timing = None
+        # Calls so far: a request's number in its spans.
+        self.requests = 0
 
     def encode_symbols(self, batch_uint8):
         """uint8 ``(B, H, W, 1)`` device batch -> ``(sym16, sym8, max_abs)``.
@@ -374,49 +377,65 @@ class PipelinedCompressor:
         ahead of the coder. The symbols come back as int8 when the
         batch's max magnitude fits, else as int16; a magnitude above the
         int16 range (or NaN) raises before anything is coded.
+
+        Host spans (``utils/tracing.py``) go around the brackets that fill
+        ``last_timing``: ``pipeline.request`` the call's wall,
+        ``pipeline.fetch_wait`` each wait for a copy and ``pipeline.coder``
+        each unit's coding, and ``pipeline.dispatch`` each unit's dispatch;
+        their ``args`` give the request's number (this compressor's calls,
+        from 1) and the unit's index.
         """
+        self.requests += 1
+        request = {"request": self.requests}
         units = self._units(images_uint8.shape[0])
         bits_per_start = {}
         recs_per_start = {}
         inflight = collections.deque()
         self.peak_in_flight = 0
         timing = {"wall": 0.0, "coder": 0.0, "fetch_wait": 0.0}
-        t_call = time.perf_counter()
-        next_idx = 0
-        while next_idx < len(units) or inflight:
-            while (next_idx < len(units)
-                   and len(inflight) < self.max_in_flight):
-                inflight.append(self._dispatch(images_uint8, units[next_idx]))
-                next_idx += 1
-                self.peak_in_flight = max(self.peak_in_flight, len(inflight))
-            (start, symbols16, symbols_fetch, reconstruction_fetch) = (
-                inflight.popleft())
-            t0 = time.perf_counter()
-            (symbols8_host, max_abs_host) = symbols_fetch.wait()
-            max_abs = float(max_abs_host)
-            if not max_abs <= 32767.0:
-                raise OverflowError(
-                    "A symbol magnitude exceeds the int16 range.")
-            if max_abs <= 127.0:
-                symbols_host = symbols8_host.numpy().astype(numpy.int16)
-            else:
-                symbols_host = symbols16.cpu().numpy()
-            timing["fetch_wait"] += time.perf_counter() - t0
-            del symbols16
-            t0 = time.perf_counter()
-            bits_per_start[start] = compress_lossless_images(
-                symbols_host, self.binary_probabilities,
-                self.idx_map_exception, verify=self.verify)
-            timing["coder"] += time.perf_counter() - t0
-            if reconstruction_fetch is not None:
-                t0 = time.perf_counter()
-                (recs_per_start[start],) = reconstruction_fetch.wait()
-                recs_per_start[start] = recs_per_start[start].numpy()
-                timing["fetch_wait"] += time.perf_counter() - t0
-        if self.mesh is not None:
-            bits_per_start = gather_pieces(bits_per_start, self.mesh)
-            recs_per_start = gather_pieces(recs_per_start, self.mesh)
-        timing["wall"] = time.perf_counter() - t_call
+        with phase("pipeline.request", request):
+            t_call = time.perf_counter()
+            next_idx = 0
+            while next_idx < len(units) or inflight:
+                while (next_idx < len(units)
+                       and len(inflight) < self.max_in_flight):
+                    with phase("pipeline.dispatch", dict(request, unit=next_idx)):
+                        inflight.append((next_idx,
+                                         self._dispatch(images_uint8, units[next_idx])))
+                    next_idx += 1
+                    self.peak_in_flight = max(self.peak_in_flight, len(inflight))
+                (unit, (start, symbols16, symbols_fetch, reconstruction_fetch)) = (
+                    inflight.popleft())
+                args = dict(request, unit=unit)
+                with phase("pipeline.fetch_wait", args):
+                    t0 = time.perf_counter()
+                    (symbols8_host, max_abs_host) = symbols_fetch.wait()
+                    max_abs = float(max_abs_host)
+                    if not max_abs <= 32767.0:
+                        raise OverflowError(
+                            "A symbol magnitude exceeds the int16 range.")
+                    if max_abs <= 127.0:
+                        symbols_host = symbols8_host.numpy().astype(numpy.int16)
+                    else:
+                        symbols_host = symbols16.cpu().numpy()
+                    timing["fetch_wait"] += time.perf_counter() - t0
+                del symbols16
+                with phase("pipeline.coder", args):
+                    t0 = time.perf_counter()
+                    bits_per_start[start] = compress_lossless_images(
+                        symbols_host, self.binary_probabilities,
+                        self.idx_map_exception, verify=self.verify)
+                    timing["coder"] += time.perf_counter() - t0
+                if reconstruction_fetch is not None:
+                    with phase("pipeline.fetch_wait", args):
+                        t0 = time.perf_counter()
+                        (recs_per_start[start],) = reconstruction_fetch.wait()
+                        recs_per_start[start] = recs_per_start[start].numpy()
+                        timing["fetch_wait"] += time.perf_counter() - t0
+            if self.mesh is not None:
+                bits_per_start = gather_pieces(bits_per_start, self.mesh)
+                recs_per_start = gather_pieces(recs_per_start, self.mesh)
+            timing["wall"] = time.perf_counter() - t_call
         self.last_timing = timing
         starts = sorted(bits_per_start)
         bits = numpy.concatenate([bits_per_start[s] for s in starts])

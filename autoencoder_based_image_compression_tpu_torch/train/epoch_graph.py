@@ -49,11 +49,23 @@ replay that fails raises; nothing falls back to the eager loop.
 
 The GDN wrappers count their launches where Python calls them: at the
 warm-up step and the capture, never at a replay.
+
+**Phase marks** (``utils/tracing.py``): the warm-up step lists the marks
+the step makes; the program then holds a ``(nb_batches, slots)`` int64
+device buffer of stamps, and the capture launches one mark kernel a
+mark, which every replay runs: each writes the card's global timer at
+(the step counter, its slot). :meth:`GraphedEpoch.phase_ms` reads the
+last epoch's stamps back, one device-to-host copy made only when asked,
+as the median device milliseconds a step of each phase. On the host, an
+epoch's spans ``epoch.load`` (the state, dataset, rows and counter into
+the buffers), ``epoch.replay`` (the replays) and ``epoch.collect`` (the
+state cloned out) carry the epoch's index in their ``args``.
 """
 
 import time
 import weakref
 
+import numpy
 import torch
 
 from autoencoder_based_image_compression_tpu_torch.train.state import (
@@ -61,6 +73,8 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     copy_state_into,
     state_leaves,
 )
+from autoencoder_based_image_compression_tpu_torch.utils import tracing
+from autoencoder_based_image_compression_tpu_torch.utils.tracing import mark, phase
 
 # Every capture of this process, in order: what it cost and holds.
 CAPTURES = []
@@ -95,6 +109,28 @@ def epoch_over_rows(step, state, dataset, rows, noise):
     return state
 
 
+def phase_ms(marks, stamps):
+    """The median over the steps of each phase's milliseconds, from
+    ``stamps`` (ns, a step a row, a column a mark of ``marks``, in
+    order): ``gather`` (``step`` to the next tiling mark), then each
+    tiling mark to the next (``tracing.STEP_MARKS``), ``gdn_backward``
+    (each ``gdn_backward_begin`` to its ``gdn_backward_end``, summed) and
+    ``step`` (``step`` to ``step_end``)."""
+    stamps = numpy.asarray(stamps, dtype=numpy.int64)
+    tiling = [i for (i, name) in enumerate(marks) if name in tracing.STEP_MARKS]
+    spans = {}
+    for (a, b) in zip(tiling, tiling[1:]):
+        spans["gather" if marks[a] == "step" else marks[a]] = stamps[:, b] - stamps[:, a]
+    (begin, end) = tracing.GDN_BACKWARD
+    begins = [i for (i, name) in enumerate(marks) if name == begin]
+    ends = [i for (i, name) in enumerate(marks) if name == end]
+    if begins:
+        spans["gdn_backward"] = sum(stamps[:, j] - stamps[:, i]
+                                    for (i, j) in zip(begins, ends, strict=True))
+    spans["step"] = stamps[:, tiling[-1]] - stamps[:, tiling[0]]
+    return {name: float(numpy.median(ns)) / 1e6 for (name, ns) in spans.items()}
+
+
 def _noise_leaves(noise):
     """The tensors of one ``train_step`` noise (a tensor, or tuples and
     lists of them), in order."""
@@ -123,6 +159,7 @@ class EpochProgram:
 
     :meth:`step` is the body the graph captures; it runs eagerly on any
     device (what the CPU tests hold against ``train.step.epoch_over_rows``).
+    ``marks`` and ``stamps`` are set at the capture (module docstring).
     """
 
     def __init__(self, train_step, state, dataset, rows, noise):
@@ -141,6 +178,7 @@ class EpochProgram:
             (self.generator, self.template) = (None, noise[0])
             self.noise = [torch.empty((len(noise), *leaf.shape), dtype=leaf.dtype,
                                       device=device) for leaf in _noise_leaves(noise[0])]
+        (self.marks, self.stamps) = ((), None)
 
     @property
     def nb_batches(self):
@@ -165,15 +203,18 @@ class EpochProgram:
 
     def step(self, buffers, counter, generator=None):
         """One training step on batch ``counter`` of the rows: the new
-        state is written into ``buffers``, and ``counter`` advances."""
-        batch = self.dataset.index_select(0, self.rows.index_select(0, counter).reshape(-1))
-        if self.template is None:
-            noise = self.generator if generator is None else generator
-        else:
-            noise = _noise_like(self.template,
-                                iter([buffer.index_select(0, counter)[0]
-                                      for buffer in self.noise]))
+        state is written into ``buffers``, and ``counter`` advances. Marks
+        ``step`` first and ``step_end`` last."""
+        with phase("step"):
+            batch = self.dataset.index_select(0, self.rows.index_select(0, counter).reshape(-1))
+            if self.template is None:
+                noise = self.generator if generator is None else generator
+            else:
+                noise = _noise_like(self.template,
+                                    iter([buffer.index_select(0, counter)[0]
+                                          for buffer in self.noise]))
         copy_state_into(buffers, self.train_step(buffers, batch, noise))
+        mark("step_end")
         counter.add_(1)
 
 
@@ -198,33 +239,45 @@ class _CapturedEpoch:
                      else torch.Generator(device=device).manual_seed(0))
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        recorder = tracing.Recorder()
+        with torch.cuda.stream(side), tracing.recording(recorder):
             program.step(scratch, counter, generator)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         del scratch, counter, generator
         warmup_s = time.perf_counter() - t0
+        # The stamps, a slot a mark the warm-up step made.
+        program.marks = tuple(recorder.names)
+        program.stamps = torch.zeros((program.nb_batches, len(program.marks)),
+                                     dtype=torch.int64, device=device)
+        (recorder.stamps, recorder.counter) = (program.stamps, program.counter)
         self.graph = torch.cuda.CUDAGraph()
         if program.generator is not None:
             self.graph.register_generator_state(program.generator)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), tracing.recording(recorder):
             program.step(program.buffers, program.counter)
         torch.cuda.synchronize(device)
+        if recorder.launched != len(program.marks):
+            raise RuntimeError(f"the capture launched {recorder.launched} marks where the "
+                               f"warm-up step made {len(program.marks)}.")
         CAPTURES.append({"warmup_s": warmup_s, "capture_s": time.perf_counter() - t0,
                          "pool_bytes": torch.cuda.memory_reserved(device) - reserved,
                          "nb_batches": program.nb_batches,
                          "batch_size": program.rows.shape[1],
                          "noise": ("per batch" if program.template is not None
                                    else "generator" if program.generator is not None
-                                   else "none")})
+                                   else "none"),
+                         "marks": program.marks})
 
-    def run(self):
-        for _ in range(self.program.nb_batches):
-            self.graph.replay()
-        return clone_state(self.program.buffers)
+    def run(self, args=None):
+        with phase("epoch.replay", args):
+            for _ in range(self.program.nb_batches):
+                self.graph.replay()
+        with phase("epoch.collect", args):
+            return clone_state(self.program.buffers)
 
 
 class GraphedEpoch:
@@ -243,6 +296,7 @@ class GraphedEpoch:
     def __init__(self, train_step):
         self.train_step = train_step
         self.captured = {}
+        (self.last, self.epochs) = (None, 0)
 
     def __call__(self, state, dataset, rows, noise):
         if dataset.device.type != "cuda":
@@ -254,14 +308,28 @@ class GraphedEpoch:
         key = (tuple(dataset.shape), dataset.dtype, dataset.device, tuple(rows.shape),
                tuple((tuple(leaf.shape), leaf.dtype, leaf.device)
                      for leaf in state_leaves(state)), form)
+        self.epochs += 1
+        args = {"epoch": self.epochs}
         entry = self.captured.get(key)
         if entry is None:
             program = EpochProgram(self.train_step, state, dataset, rows, noise)
-            program.load(state, dataset, rows, noise)
+            with phase("epoch.load", args):
+                program.load(state, dataset, rows, noise)
             entry = self.captured[key] = _CapturedEpoch(program)
         else:
-            entry.program.load(state, dataset, rows, noise)
-        return entry.run()
+            with phase("epoch.load", args):
+                entry.program.load(state, dataset, rows, noise)
+        self.last = entry
+        return entry.run(args)
+
+    def phase_ms(self):
+        """The last graphed epoch's median device milliseconds a step of
+        each phase (:func:`phase_ms` of its stamps, one copy to the host),
+        or None before the first."""
+        if self.last is None:
+            return None
+        program = self.last.program
+        return phase_ms(program.marks, program.stamps.cpu().numpy())
 
 
 def epoch_fn(step):
@@ -271,7 +339,8 @@ def epoch_fn(step):
     (:class:`GraphedEpoch`, whose captures live as long as the returned
     function); for a state on the CPU, the eager loop
     :func:`epoch_over_rows`. On the card the returned state shares no
-    storage with the given one or with the graph."""
+    storage with the given one or with the graph. ``epoch.phase_ms()``
+    is :meth:`GraphedEpoch.phase_ms` (None until an epoch ran graphed)."""
     graphed = GraphedEpoch(step)
 
     def epoch(state, dataset, rows, noise):
@@ -279,4 +348,5 @@ def epoch_fn(step):
             return graphed(state, dataset, rows, noise)
         return epoch_over_rows(step, state, dataset, rows, noise)
 
+    epoch.phase_ms = graphed.phase_ms
     return epoch

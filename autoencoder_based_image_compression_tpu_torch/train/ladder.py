@@ -69,6 +69,7 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     map_state,
 )
 from autoencoder_based_image_compression_tpu_torch.train.step import _project_gdn
+from autoencoder_based_image_compression_tpu_torch.utils.tracing import phase
 
 
 def ladder_stack_states(states):
@@ -264,22 +265,24 @@ class _StackedLadder:
         return self._constants[device]
 
     def training_fct(self, states, batch, noise):
-        return _density_phase_stacked(states, batch, _per_model(noise, len(self.gammas)),
-                                      self.ppi, self.max_itvs)
+        with phase("density"):
+            return _density_phase_stacked(states, batch, _per_model(noise, len(self.gammas)),
+                                          self.ppi, self.max_itvs)
 
     def training_eae(self, states, batch, noise):
         """One Adam step of every model on the sum of their losses, then
         the GDN projections (``train.step._eae_bw_phase`` with fixed bin
-        widths)."""
+        widths), in the phases ``forward``, ``backward`` and ``optimizer``."""
         (gammas, boundaries) = self.constants(states.step.device)
         params = {name: value.detach().requires_grad_(True)
                   for (name, value) in states.params.items()}
-        with torch.enable_grad():
+        with phase("forward"), torch.enable_grad():
             (loss, _) = _rd_loss_stacked(params, states, batch, noise, gammas, self.ppi,
                                          self.max_itvs)
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[name] for name in names])
-        with torch.no_grad():
+        with phase("backward"):
+            grads = torch.autograd.grad(loss, [params[name] for name in names])
+        with phase("optimizer"), torch.no_grad():
             (new_params, opt_eae) = adam_update(dict(zip(names, grads)), states.opt_eae,
                                                 states.params, boundaries)
             new_params = _project_gdn(new_params, False)
@@ -326,7 +329,8 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     its own models). ``fit_epoch`` and ``train_epoch`` on a CUDA state
     replay one captured ladder ``training_fct`` / ``train_step`` a batch,
     a block's on that block's device for a sharded ladder, block after
-    block, and loop on the CPU.
+    block, and loop on the CPU; their ``phase_ms()`` reads the stamps of
+    the whole ladder's last graphed epoch (``train/epoch_graph.py``).
     """
     whole = _StackedLadder(gammas, ppi, max_itvs)
     blocks = {}
@@ -367,6 +371,9 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
                 return getattr(fns, name)(block, dataset.to(device), rows, block_noise)
 
             return states.map_blocks(block_epoch)
+
+        # The whole ladder's graphed epochs (a sharded ladder's blocks keep theirs).
+        fn.phase_ms = getattr(whole, name).phase_ms
         return fn
 
     return {

@@ -105,6 +105,22 @@ def run_epoch_training(training_uint8, state, step_fns, batch_size, nb_batches, 
     return step_fns["train_epoch"](state, dataset, rows, noise)
 
 
+def phase_line(train_epoch):
+    """The operator's line of the last graphed epoch of ``train_epoch``
+    (a step functions' ``train_epoch``): the median device milliseconds
+    a step of each phase, read from the epoch's stamps
+    (``train/epoch_graph.py``); None where no epoch ran graphed (the
+    CPU)."""
+    phases = train_epoch.phase_ms()
+    if phases is None:
+        return None
+    gdn = f" (GDN backward {phases['gdn_backward']:.3f})" if "gdn_backward" in phases else ""
+    parts = [f"{name} {phases[name]:.3f}" + (gdn if name == "backward" else "")
+             for name in ("gather", "density", "forward", "backward", "optimizer")
+             if name in phases]
+    return f"Device ms a step by phase: {', '.join(parts)}; step {phases['step']:.3f}"
+
+
 def evaluate(state, batch_uint8, step_fns, gamma_scaling, noise):
     """The reference's four training indicators on one batch:
     ``(mean_discrete_entropy, scaled_approx_entropy, rec_error,

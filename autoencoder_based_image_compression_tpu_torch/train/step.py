@@ -17,6 +17,12 @@ warm-up switch and the step count are device tensors. The density phase
 and ``evaluation`` run the encoder without autograd; ``_rd_loss`` is
 differentiated through the GDN kernel's ``GdnFunction``.
 
+**Phases** (``utils/tracing.py``): the density phase runs under
+``density``, the RD loss under ``forward``, its gradient under
+``backward`` and Adam, the bin widths and the projections under
+``optimizer``: profiler ranges everywhere, and mark kernels in a graphed
+epoch's capture.
+
 **Noise.** Where the reference takes a random key, these functions take
 ``noise``: a ``torch.Generator`` on the state's device, or the uniform
 noise in [-0.5, 0.5) itself, of the latents' shape (for ``train_step`` a
@@ -35,6 +41,7 @@ from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import (  #
     epoch_over_rows,
 )
 from autoencoder_based_image_compression_tpu_torch.train.state import adam_update
+from autoencoder_based_image_compression_tpu_torch.utils.tracing import phase
 
 
 def _flatten_maps(y_tilde):
@@ -103,12 +110,13 @@ def rd_gradients(state, visible_units, noise, gamma_scaling, learn_bin_widths, p
     params = {name: value.detach().requires_grad_(True)
               for (name, value) in state.params.items()}
     bin_widths = state.bin_widths.detach().requires_grad_(learn_bin_widths)
-    with torch.enable_grad():
+    with phase("forward"), torch.enable_grad():
         (loss, _) = _rd_loss(params, bin_widths, visible_units, noise, state.density,
                              gamma_scaling, learn_bin_widths, ppi, max_itvs)
     names = list(params)
     inputs = [params[name] for name in names] + ([bin_widths] if learn_bin_widths else [])
-    grads = torch.autograd.grad(loss, inputs)
+    with phase("backward"):
+        grads = torch.autograd.grad(loss, inputs)
     grads_bw = grads[len(names)] if learn_bin_widths else None
     return (dict(zip(names, grads)), grads_bw, loss.detach())
 
@@ -139,7 +147,7 @@ def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, 
     """
     (grads_params, grads_bw, _) = rd_gradients(state, visible_units, noise, gamma_scaling,
                                                learn_bin_widths, ppi, max_itvs)
-    with torch.no_grad():
+    with phase("optimizer"), torch.no_grad():
         (params, opt_eae) = adam_update(grads_params, state.opt_eae, state.params,
                                         gamma_scaling)
         bin_widths = state.bin_widths
@@ -188,7 +196,8 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
     static = dict(learn_bin_widths=learn_bin_widths, ppi=ppi, max_itvs=max_itvs)
 
     def training_fct(state, batch, noise):
-        return _density_phase(state, batch, noise, **static)
+        with phase("density"):
+            return _density_phase(state, batch, noise, **static)
 
     def training_eae_bw(state, batch, noise):
         return _eae_bw_phase(state, batch, noise, gamma_scaling,
