@@ -68,7 +68,7 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     ladder_boundaries,
     map_state,
 )
-from autoencoder_based_image_compression_tpu_torch.train.step import _project_gdn
+from autoencoder_based_image_compression_tpu_torch.train.step import _leaves, _project_gdn
 from autoencoder_based_image_compression_tpu_torch.utils.tracing import phase
 
 
@@ -190,11 +190,6 @@ def _flatten_maps_stacked(y_tilde, nb_models):
     return y_tilde.reshape(-1, nb_models, y_tilde.shape[-1] // nb_models).permute(1, 2, 0)
 
 
-def _noisy_latents_stacked(states, visible_units, noise):
-    y = conv_eae.encode_stacked(states.params, visible_units.to(torch.float32), False)
-    return (y, y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y))
-
-
 def _expanded_tables(states, y, ppi, max_itvs):
     """The density tables grown to hold each model's latents, and their
     masks; each model's largest latent stays on the device."""
@@ -205,13 +200,14 @@ def _expanded_tables(states, y, ppi, max_itvs):
     return (table, dens.active_mask(table.nb_itvs_per_side, ppi, max_itvs))
 
 
-def _density_phase_stacked(states, visible_units, noise, ppi, max_itvs):
-    """``train.step._density_phase`` of every model at once: the
-    expansion, one SGD step on the sum of the models' density losses
-    (each model's table gets its own gradient) and the projection."""
+def _density_update_stacked(states, y, noise, ppi, max_itvs):
+    """``train.step._density_update`` of every model at once on the
+    stacked latents ``y``: the expansion, one SGD step on the sum of the
+    models' density losses (each model's table gets its own gradient) and
+    the projection; the noise is drawn here."""
     nb_models = states.step.shape[0]
     with torch.no_grad():
-        (y, y_tilde) = _noisy_latents_stacked(states, visible_units, noise)
+        y_tilde = y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y)
         (table, mask) = _expanded_tables(states, y, ppi, max_itvs)
         samples = _flatten_maps_stacked(y_tilde, nb_models)
     parameters = table.parameters.detach().requires_grad_(True)
@@ -225,13 +221,12 @@ def _density_phase_stacked(states, visible_units, noise, ppi, max_itvs):
     return states._replace(density=table._replace(parameters=new_parameters))
 
 
-def _rd_loss_stacked(params, states, visible_units, noise, gammas, ppi, max_itvs):
-    """``train.step._rd_loss`` of every model at once: ``(sum over the
-    models of rec_error + gamma * approx_entropy + weight_decay,
-    (rec_errors, approx_entropies))``, the last two ``(M,)``."""
-    visible_units = visible_units.to(torch.float32)
+def _rd_loss_stacked(params, states, visible_units, y, noise, gammas, ppi, max_itvs):
+    """``train.step._rd_loss`` of every model at once, from the float32
+    batch's stacked latents ``y``: ``(sum over the models of rec_error +
+    gamma * approx_entropy + weight_decay, (rec_errors,
+    approx_entropies))``, the last two ``(M,)``; the noise is drawn here."""
     nb_models = states.step.shape[0]
-    y = conv_eae.encode_stacked(params, visible_units, False)
     y_tilde = y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y)
     prob = dens.approximate_probability(_flatten_maps_stacked(y_tilde, nb_models),
                                         states.density.parameters, ppi, max_itvs)
@@ -265,19 +260,25 @@ class _StackedLadder:
         return self._constants[device]
 
     def training_fct(self, states, batch, noise):
+        noise = _per_model(noise, len(self.gammas))
         with phase("density"):
-            return _density_phase_stacked(states, batch, _per_model(noise, len(self.gammas)),
-                                          self.ppi, self.max_itvs)
+            with torch.no_grad():
+                y = conv_eae.encode_stacked(states.params, batch.to(torch.float32), False)
+            return _density_update_stacked(states, y, noise, self.ppi, self.max_itvs)
 
-    def training_eae(self, states, batch, noise):
+    def _autoencoder_phase(self, states, params, batch, y, noise):
         """One Adam step of every model on the sum of their losses, then
-        the GDN projections (``train.step._eae_bw_phase`` with fixed bin
-        widths), in the phases ``forward``, ``backward`` and ``optimizer``."""
+        the GDN projections (``train.step._eae_bw_update`` with fixed bin
+        widths), in the phases ``forward``, ``backward`` and
+        ``optimizer``. ``params`` are the autograd leaves of
+        ``states.params`` and ``y`` the batch's latents under them, or
+        ``None`` to encode the batch here."""
         (gammas, boundaries) = self.constants(states.step.device)
-        params = {name: value.detach().requires_grad_(True)
-                  for (name, value) in states.params.items()}
         with phase("forward"), torch.enable_grad():
-            (loss, _) = _rd_loss_stacked(params, states, batch, noise, gammas, self.ppi,
+            batch = batch.to(torch.float32)
+            if y is None:
+                y = conv_eae.encode_stacked(params, batch, False)
+            (loss, _) = _rd_loss_stacked(params, states, batch, y, noise, gammas, self.ppi,
                                          self.max_itvs)
         names = list(params)
         with phase("backward"):
@@ -288,6 +289,11 @@ class _StackedLadder:
             new_params = _project_gdn(new_params, False)
         return states._replace(params=new_params, opt_eae=opt_eae, step=states.step + 1)
 
+    def training_eae(self, states, batch, noise):
+        """The autoencoder phase alone, which encodes the batch itself."""
+        (params, _) = _leaves(states, False)
+        return self._autoencoder_phase(states, params, batch, None, noise)
+
     def train_step(self, states, batch, noise):
         # One generator serves both phases in turn, the density phase first.
         if isinstance(noise, torch.Generator):
@@ -295,13 +301,23 @@ class _StackedLadder:
         else:
             _per_model(noise, len(self.gammas))
             (noise_fct, noise_eae) = ([pair[0] for pair in noise], [pair[1] for pair in noise])
-        states = self.training_fct(states, batch, noise_fct)
-        return self.training_eae(states, batch, noise_eae)
+        # One encode serves both phases: the density phase changes only the
+        # tables, which the encoder never reads.
+        (params, _) = _leaves(states, False)
+        with phase("density"):
+            batch = batch.to(torch.float32)
+            with torch.enable_grad():
+                y = conv_eae.encode_stacked(params, batch, False)
+            states = _density_update_stacked(states, y.detach(), noise_fct, self.ppi,
+                                             self.max_itvs)
+        return self._autoencoder_phase(states, params, batch, y, noise_eae)
 
     @torch.no_grad()
     def evaluation(self, states, batch, noise):
         (gammas, _) = self.constants(states.step.device)
-        (_, indicators) = _rd_loss_stacked(states.params, states, batch,
+        batch = batch.to(torch.float32)
+        y = conv_eae.encode_stacked(states.params, batch, False)
+        (_, indicators) = _rd_loss_stacked(states.params, states, batch, y,
                                            _per_model(noise, len(self.gammas)), gammas,
                                            self.ppi, self.max_itvs)
         return indicators

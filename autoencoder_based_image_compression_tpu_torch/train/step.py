@@ -12,16 +12,24 @@ One ``train_step`` keeps the reference's ordering
 ``training_fct`` and ``training_eae_bw`` expose the two phases for the
 density pre-fitting epochs (``eae/batching.py:102-127``).
 
+A ``train_step`` encodes its batch once. The density phase changes only
+the density table, which the encoder never reads, so the latents of the
+step's parameters serve both phases: the density phase takes them
+detached and the RD loss with their autograd graph. The step equals
+``training_eae_bw(training_fct(state, batch, noise_fct), batch,
+noise_eae)`` bit for bit, each of which encodes for itself.
+
 Nothing in a step reads a value back to the host: the grid's extent, the
-warm-up switch and the step count are device tensors. The density phase
-and ``evaluation`` run the encoder without autograd; ``_rd_loss`` is
-differentiated through the GDN kernel's ``GdnFunction``.
+warm-up switch and the step count are device tensors. The pre-fit's
+density phase and ``evaluation`` run the encoder without autograd;
+``_rd_loss`` is differentiated through the GDN kernel's ``GdnFunction``.
 
 **Phases** (``utils/tracing.py``): the density phase runs under
-``density``, the RD loss under ``forward``, its gradient under
-``backward`` and Adam, the bin widths and the projections under
-``optimizer``: profiler ranges everywhere, and mark kernels in a graphed
-epoch's capture.
+``density`` (in a ``train_step``, the step's one encode with it), the RD
+loss from the latents under ``forward``, its gradient under ``backward``
+and Adam, the bin widths and the projections under ``optimizer``:
+profiler ranges everywhere, and mark kernels in a graphed epoch's
+capture.
 
 **Noise.** Where the reference takes a random key, these functions take
 ``noise``: a ``torch.Generator`` on the state's device, or the uniform
@@ -50,13 +58,6 @@ def _flatten_maps(y_tilde):
     return y_tilde.reshape(-1, y_tilde.shape[-1]).t()
 
 
-def _noisy_latents(params, visible_units, bin_widths, noise, learn_bin_widths):
-    # Batches may arrive as uint8 rows of a device-resident dataset; the
-    # cast to float32 happens here, on the device.
-    y = conv_eae.encode(params, visible_units.to(torch.float32), learn_bin_widths)
-    return (y, add_uniform_noise(noise, y, bin_widths))
-
-
 def _expanded_table(state, y, ppi, max_itvs):
     """The density table grown to hold the latents ``y``, and its mask."""
     max_abs = torch.max(torch.abs(y)) + 0.5 * torch.max(state.bin_widths)
@@ -64,12 +65,12 @@ def _expanded_table(state, y, ppi, max_itvs):
     return (table, dens.active_mask(table.nb_itvs_per_side, ppi, max_itvs))
 
 
-def _density_phase(state, visible_units, noise, learn_bin_widths, ppi, max_itvs):
-    """Expansion + one density SGD step + projection (reference
-    ``EntropyAutoencoder.py:484-506``, ``training_fct``)."""
+def _density_update(state, y, noise, ppi, max_itvs):
+    """Expansion + one density SGD step + projection on the batch's
+    latents ``y`` (reference ``EntropyAutoencoder.py:484-506``,
+    ``training_fct``); the noise is drawn here."""
     with torch.no_grad():
-        (y, y_tilde) = _noisy_latents(state.params, visible_units, state.bin_widths, noise,
-                                      learn_bin_widths)
+        y_tilde = add_uniform_noise(noise, y, state.bin_widths)
         (table, mask) = _expanded_table(state, y, ppi, max_itvs)
         samples = _flatten_maps(y_tilde)
     parameters = table.parameters.detach().requires_grad_(True)
@@ -83,15 +84,18 @@ def _density_phase(state, visible_units, noise, learn_bin_widths, ppi, max_itvs)
     return state._replace(density=table._replace(parameters=new_parameters))
 
 
-def _rd_loss(params, bin_widths, visible_units, noise, density_table, gamma_scaling,
-             learn_bin_widths, ppi, max_itvs):
-    """Rate-distortion objective of the autoencoder and the bin widths:
-    ``rec_error + gamma * approx_entropy + WEIGHT_DECAY_P * l2``
-    (reference ``EntropyAutoencoder.py:308-313``). The density
-    parameters are inputs, not optimisation variables. Returns
-    ``(loss, (rec_error, approx_entropy))``."""
-    visible_units = visible_units.to(torch.float32)
-    (_, y_tilde) = _noisy_latents(params, visible_units, bin_widths, noise, learn_bin_widths)
+def _density_phase(state, visible_units, noise, learn_bin_widths, ppi, max_itvs):
+    """:func:`_density_update` on the batch's latents, encoded here."""
+    with torch.no_grad():
+        y = conv_eae.encode(state.params, visible_units.to(torch.float32), learn_bin_widths)
+    return _density_update(state, y, noise, ppi, max_itvs)
+
+
+def _rd_loss_of_latents(params, bin_widths, visible_units, y, noise, density_table,
+                        gamma_scaling, learn_bin_widths, ppi, max_itvs):
+    """:func:`_rd_loss` from the float32 batch's latents ``y``; the noise
+    is drawn here."""
+    y_tilde = add_uniform_noise(noise, y, bin_widths)
     prob = dens.approximate_probability(_flatten_maps(y_tilde), density_table.parameters,
                                         ppi, max_itvs)
     approx_entropy = dens.approximate_entropy(prob, bin_widths)
@@ -103,22 +107,47 @@ def _rd_loss(params, bin_widths, visible_units, noise, density_table, gamma_scal
     return (loss, (rec_error, approx_entropy))
 
 
-def rd_gradients(state, visible_units, noise, gamma_scaling, learn_bin_widths, ppi, max_itvs):
-    """Gradients of :func:`_rd_loss` at ``state``: ``(grads_params,
-    grads_bin_widths, loss)``, detached. The bin widths' gradient is
-    ``None`` unless they are learned."""
+def _rd_loss(params, bin_widths, visible_units, noise, density_table, gamma_scaling,
+             learn_bin_widths, ppi, max_itvs):
+    """Rate-distortion objective of the autoencoder and the bin widths:
+    ``rec_error + gamma * approx_entropy + WEIGHT_DECAY_P * l2``
+    (reference ``EntropyAutoencoder.py:308-313``). The density
+    parameters are inputs, not optimisation variables. Returns
+    ``(loss, (rec_error, approx_entropy))``."""
+    visible_units = visible_units.to(torch.float32)
+    y = conv_eae.encode(params, visible_units, learn_bin_widths)
+    return _rd_loss_of_latents(params, bin_widths, visible_units, y, noise, density_table,
+                               gamma_scaling, learn_bin_widths, ppi, max_itvs)
+
+
+def _leaves(state, learn_bin_widths):
+    """The autograd leaves of the parameters and the bin widths (these
+    require grad only when they are learned)."""
     params = {name: value.detach().requires_grad_(True)
               for (name, value) in state.params.items()}
-    bin_widths = state.bin_widths.detach().requires_grad_(learn_bin_widths)
-    with phase("forward"), torch.enable_grad():
-        (loss, _) = _rd_loss(params, bin_widths, visible_units, noise, state.density,
-                             gamma_scaling, learn_bin_widths, ppi, max_itvs)
+    return (params, state.bin_widths.detach().requires_grad_(learn_bin_widths))
+
+
+def _gradients(loss, params, bin_widths, learn_bin_widths):
+    """``(grads_params, grads_bin_widths, loss)`` of ``loss`` at the
+    leaves of :func:`_leaves`, detached, under the ``backward`` phase."""
     names = list(params)
     inputs = [params[name] for name in names] + ([bin_widths] if learn_bin_widths else [])
     with phase("backward"):
         grads = torch.autograd.grad(loss, inputs)
     grads_bw = grads[len(names)] if learn_bin_widths else None
     return (dict(zip(names, grads)), grads_bw, loss.detach())
+
+
+def rd_gradients(state, visible_units, noise, gamma_scaling, learn_bin_widths, ppi, max_itvs):
+    """Gradients of :func:`_rd_loss` at ``state``: ``(grads_params,
+    grads_bin_widths, loss)``, detached. The bin widths' gradient is
+    ``None`` unless they are learned."""
+    (params, bin_widths) = _leaves(state, learn_bin_widths)
+    with phase("forward"), torch.enable_grad():
+        (loss, _) = _rd_loss(params, bin_widths, visible_units, noise, state.density,
+                             gamma_scaling, learn_bin_widths, ppi, max_itvs)
+    return _gradients(loss, params, bin_widths, learn_bin_widths)
 
 
 def _project_gdn(params, learn_bin_widths):
@@ -133,10 +162,11 @@ def _project_gdn(params, learn_bin_widths):
     return new
 
 
-def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, ppi, max_itvs,
-                  bw_warmup_steps=0, bw_warmup_max=1.0):
-    """Joint Adam + bin-width SGD update, then the projections
-    (reference ``EntropyAutoencoder.py:508-540``, ``training_eae_bw``).
+def _eae_bw_update(state, grads_params, grads_bw, gamma_scaling, learn_bin_widths,
+                   bw_warmup_steps=0, bw_warmup_max=1.0):
+    """Joint Adam + bin-width SGD update from the RD gradients, then the
+    projections (reference ``EntropyAutoencoder.py:508-540``,
+    ``training_eae_bw``).
 
     ``bw_warmup_steps``: cold-start mitigation for joint bin-width
     learning. Early in training the latents are small against the clip
@@ -145,8 +175,6 @@ def _eae_bw_phase(state, visible_units, noise, gamma_scaling, learn_bin_widths, 
     bw_warmup_steps`` the upper clip is ``bw_warmup_max`` instead of
     ``MAX_BW``; 0 disables it (the reference's [0.8, 4.0] at every step).
     """
-    (grads_params, grads_bw, _) = rd_gradients(state, visible_units, noise, gamma_scaling,
-                                               learn_bin_widths, ppi, max_itvs)
     with phase("optimizer"), torch.no_grad():
         (params, opt_eae) = adam_update(grads_params, state.opt_eae, state.params,
                                         gamma_scaling)
@@ -179,7 +207,7 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
     - ``training_eae_bw(state, batch, noise)``: autoencoder + bin-width
       update
     - ``train_step(state, batch, noise)``: the per-batch alternation,
-      density phase THEN autoencoder phase
+      density phase THEN autoencoder phase, over one encode of the batch
     - ``train_epoch(state, dataset, rows, noise)``: the alternation over
       the ``(nb_batches, batch_size)`` row indices of a device-resident
       uint8 dataset, each batch gathered on the device; ``noise`` is a
@@ -194,28 +222,41 @@ def make_step_fns(gamma_scaling, learn_bin_widths, ppi=csts.NB_POINTS_PER_INTERV
       [UNCLAMPED], areas_under_pdfs, weight_decay)``
     """
     static = dict(learn_bin_widths=learn_bin_widths, ppi=ppi, max_itvs=max_itvs)
+    update = dict(gamma_scaling=gamma_scaling, learn_bin_widths=learn_bin_widths,
+                  bw_warmup_steps=bw_warmup_steps, bw_warmup_max=bw_warmup_max)
 
     def training_fct(state, batch, noise):
         with phase("density"):
             return _density_phase(state, batch, noise, **static)
 
     def training_eae_bw(state, batch, noise):
-        return _eae_bw_phase(state, batch, noise, gamma_scaling,
-                             bw_warmup_steps=bw_warmup_steps, bw_warmup_max=bw_warmup_max,
-                             **static)
+        (grads_params, grads_bw, _) = rd_gradients(state, batch, noise, gamma_scaling,
+                                                   **static)
+        return _eae_bw_update(state, grads_params, grads_bw, **update)
 
     def train_step(state, batch, noise):
         # One generator serves both phases in turn.
         (noise_fct, noise_eae) = ((noise, noise) if isinstance(noise, torch.Generator)
                                   else noise)
-        return training_eae_bw(training_fct(state, batch, noise_fct), batch, noise_eae)
-
+        (params, bin_widths) = _leaves(state, learn_bin_widths)
+        with phase("density"):
+            # Batches may arrive as uint8 rows of a device-resident dataset;
+            # the cast to float32 happens here, on the device.
+            batch = batch.to(torch.float32)
+            with torch.enable_grad():
+                y = conv_eae.encode(params, batch, learn_bin_widths)
+            state = _density_update(state, y.detach(), noise_fct, ppi, max_itvs)
+        with phase("forward"), torch.enable_grad():
+            (loss, _) = _rd_loss_of_latents(params, bin_widths, batch, y, noise_eae,
+                                            state.density, gamma_scaling, **static)
+        (grads_params, grads_bw, _) = _gradients(loss, params, bin_widths, learn_bin_widths)
+        return _eae_bw_update(state, grads_params, grads_bw, **update)
 
     @torch.no_grad()
     def evaluation(state, batch, noise):
         batch = batch.to(torch.float32)
-        (y, y_tilde) = _noisy_latents(state.params, batch, state.bin_widths, noise,
-                                      learn_bin_widths)
+        y = conv_eae.encode(state.params, batch, learn_bin_widths)
+        y_tilde = add_uniform_noise(noise, y, state.bin_widths)
         (table, mask) = _expanded_table(state, y, ppi, max_itvs)
         prob = dens.approximate_probability(_flatten_maps(y_tilde), table.parameters, ppi,
                                             max_itvs)

@@ -326,18 +326,25 @@ RD_IMAGES_TAG = "6c3a64d647"
 FIXED_BW_TAIL0_DB = 0.5
 (RD_PSNR_DB, RD_MEAN_RATE, RD_IMAGE_RATE, RD_DEADS_EQUAL, RD_BJONTEGAARD_POINTS) = (
     0.05, 0.01, 0.02, 0.99, 0.5)
-# The GDN launches of one train_step: (variant, shape). The density phase
-# encodes, the autoencoder phase encodes and decodes; the fixed-bin-width
-# architecture adds GDN_3 and IGDN_4 at the bottleneck.
-TRAIN_SITES = {
-    True: 2 * (("gdn_f32", "T/4"), ("gdn_f32", "T/8"))
-    + (("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
-    False: 2 * (("gdn_f32", "T/4"), ("gdn_f32", "T/8"), ("gdn_f32", "T/16"))
-    + (("igdn_f32", "T/16"), ("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
+# The GDN launches of a training batch's encode and decode: (variant,
+# shape); the fixed-bin-width architecture adds GDN_3 and IGDN_4 at the
+# bottleneck. One train_step encodes once (its density phase and RD loss
+# share the latents) and decodes once; the data-parallel sharded step
+# encodes once more, in its RD loss.
+ENCODE_SITES = {
+    True: (("gdn_f32", "T/4"), ("gdn_f32", "T/8")),
+    False: (("gdn_f32", "T/4"), ("gdn_f32", "T/8"), ("gdn_f32", "T/16")),
 }
-# The stacked fp32 kernel (a ladder step's six GDN sites, one launch each
-# for every model): its single-model variant and inverse; the ladder's
-# models.
+DECODE_SITES = {
+    True: (("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
+    False: (("igdn_f32", "T/16"), ("igdn_f32", "T/8"), ("igdn_f32", "T/4")),
+}
+TRAIN_SITES = {learn: ENCODE_SITES[learn] + DECODE_SITES[learn] for learn in (True, False)}
+SHARDED_TRAIN_SITES = {learn: ENCODE_SITES[learn] + TRAIN_SITES[learn]
+                       for learn in (True, False)}
+# The stacked fp32 kernel (a ladder step's three GDN and three IGDN
+# sites, one launch each for every model): its single-model variant and
+# inverse; the ladder's models.
 STACKED_VARIANTS = {"gdn_f32_stacked": ("gdn_f32", False),
                     "igdn_f32_stacked": ("igdn_f32", True)}
 STACKED_MODELS = 7
@@ -1462,7 +1469,7 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
 
     per_step = {name: sum(1 for (variant, _) in TRAIN_SITES[learn_bin_widths]
                            if variant == name) for name in ("gdn_f32", "igdn_f32")}
-    gdn_encode = per_step["gdn_f32"] // 2
+    gdn_encode = len(ENCODE_SITES[learn_bin_widths])
     (density_0, rd_0, _) = indicators(state)
     # The pre-fit epoch: the replays of one captured training_fct, which
     # encodes once a step (counted at its warm-up step and its capture).
@@ -1694,12 +1701,12 @@ def phase_ladder(draws_equal):
         resumed = load_part(2)
     # Part 0, every GDN site one stacked launch for the seven models: the
     # pre-fit encodes once a step; each of the two evaluations (training
-    # and validation portion) encodes and decodes once; a ladder step is 6
-    # GDN + 3 IGDN. The pre-fit's 12 steps and the epoch's 12 are the
-    # replays of one captured step each (counted at its warm-up and
-    # capture).
+    # and validation portion) encodes and decodes once; a ladder step
+    # encodes and decodes once, 3 GDN + 3 IGDN. The pre-fit's 12 steps and
+    # the epoch's 12 are the replays of one captured step each (counted at
+    # its warm-up and capture).
     expect_launches("ladder training (part 0)", part_launches, {
-        "gdn_f32_stacked": 3 * (GRAPH_PREP_STEPS + 2 + 2 * GRAPH_PREP_STEPS),
+        "gdn_f32_stacked": 3 * (GRAPH_PREP_STEPS + 2 + GRAPH_PREP_STEPS),
         "igdn_f32_stacked": 3 * (2 + GRAPH_PREP_STEPS)})
     epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
     if epoch is None or f"global step {nb_batches})" not in printed_1:
@@ -1732,7 +1739,7 @@ def phase_ladder(draws_equal):
     gk.reset_launch_counts()
     fns["train_step"](trained, eval_batch, noise)
     expect_launches("one ladder train_step", dict(gk.LAUNCHES),
-                    {"gdn_f32_stacked": 6, "igdn_f32_stacked": 3})
+                    {"gdn_f32_stacked": 3, "igdn_f32_stacked": 3})
 
     # Model k of the stacked ladder against a single-model run from the
     # same start on the same batches and noise: one step at the JAX
@@ -1831,10 +1838,10 @@ def _campaign_launches(args, one_model=False):
     """GDN / IGDN launches of the campaign's training stage: every part of
     the eight models, or (``one_model``) of one fixed model's last part.
     A part: the pre-fit (part 0 only) encodes once a step, each epoch's
-    two evaluations encode and decode once, a step encodes twice (the
-    density and autoencoder phases) and decodes once, and the part's
-    pre-fit and epochs replay one captured step each, counted at its
-    warm-up and its capture; 3 sites a fixed-bin-width model, 2 for the
+    two evaluations encode and decode once, a step encodes once (its
+    density and autoencoder phases share the latents) and decodes once,
+    and the part's pre-fit and epochs replay one captured step each,
+    counted at its warm-up and its capture; 3 sites a fixed-bin-width model, 2 for the
     learned one. The ladder's models share each launch of the stacked
     kernel; a model retrained alone launches the single-model kernel."""
     launches = collections.Counter()
@@ -1844,7 +1851,7 @@ def _campaign_launches(args, one_model=False):
         for (variant, sites) in models:
             launches["gdn_f32" + variant] += sites * (
                 (GRAPH_PREP_STEPS if idx_part == 0 else 0) + 2 * args.nb_epochs
-                + 2 * GRAPH_PREP_STEPS)
+                + GRAPH_PREP_STEPS)
             launches["igdn_f32" + variant] += sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
     return dict(launches)
 
@@ -2248,8 +2255,9 @@ def phase_distributed(card, draws_equal):
             if grad_gap > 1e-5:
                 raise AssertionError(f"sharded gradients, {tag}: gap {grad_gap}")
             paths[f"distributed training, {tag}"] = dict(launches)
-            per_step = {name: DIST_STEPS * sum(1 for (v, _) in TRAIN_SITES[learn_bin_widths]
-                                               if v == name) for name in ("gdn_f32", "igdn_f32")}
+            per_step = {name: DIST_STEPS * sum(
+                1 for (v, _) in SHARDED_TRAIN_SITES[learn_bin_widths] if v == name)
+                for name in ("gdn_f32", "igdn_f32")}
             expect_launches(f"distributed training, {tag}", dict(launches), per_step)
             sharded_state = distributed.global_state(current, mesh)
             sharded_batch = distributed.global_batch(batches[0], mesh)
@@ -2366,10 +2374,10 @@ def phase_distributed(card, draws_equal):
     gk.reset_launch_counts()
     sharded = fns["train_step"](ladder.shard_ladder_state(states, seven), batch, noises)
     record("ladder over seven shards")
-    # Each shard is a stacked ladder of one model: its six GDN sites one
-    # stacked launch each.
+    # Each shard is a stacked ladder of one model: its step's six GDN sites
+    # (one encode, one decode) one stacked launch each.
     expect_launches("ladder over seven shards", paths["ladder over seven shards"],
-                    {"gdn_f32_stacked": 6 * len(gammas), "igdn_f32_stacked": 3 * len(gammas)})
+                    {"gdn_f32_stacked": 3 * len(gammas), "igdn_f32_stacked": 3 * len(gammas)})
     (whole, plain_host) = (distributed.fetch_replicated(sharded),
                            distributed.fetch_replicated(plain))
     (worst, outside, entries) = (0.0, 0, 0)
