@@ -576,6 +576,8 @@ AEIC_MARK_KERNEL(aeic_mark_optimizer)
 AEIC_MARK_KERNEL(aeic_mark_step_end)
 AEIC_MARK_KERNEL(aeic_mark_gdn_backward_begin)
 AEIC_MARK_KERNEL(aeic_mark_gdn_backward_end)
+AEIC_MARK_KERNEL(aeic_mark_entropy)
+AEIC_MARK_KERNEL(aeic_mark_synthesis)
 
 namespace {
 
@@ -595,6 +597,8 @@ const Mark kMarks[] = {
     {"aeic_mark_step_end", aeic_mark_step_end},
     {"aeic_mark_gdn_backward_begin", aeic_mark_gdn_backward_begin},
     {"aeic_mark_gdn_backward_end", aeic_mark_gdn_backward_end},
+    {"aeic_mark_entropy", aeic_mark_entropy},
+    {"aeic_mark_synthesis", aeic_mark_synthesis},
 };
 constexpr int kNumMarks = sizeof(kMarks) / sizeof(kMarks[0]);
 

@@ -12,6 +12,12 @@ takes a ``(rows, 128)`` matrix: for a CPU tensor it runs the plain
 PyTorch version below; for a CUDA tensor it launches the kernel on the
 current stream or raises. Nothing falls back.
 
+``gamma`` is indexed ``[k][c]`` everywhere here, in the kernels and in
+the plain versions: ``pool_c = sum_k x_k^2 * gamma[k][c] + beta_c``,
+map ``k``'s square in map ``c``'s pool. It need not be symmetric: a
+caller whose gamma is indexed the other way (the paper's ``gamma_ck``,
+as the scale hyperprior learns it) hands over its transpose.
+
 The fp32 kernel also takes a model axis (:func:`gdn_stacked_2d`): the
 gamma ladder's M models side by side in one ``(rows, M, 128)`` tensor,
 the output of a convolution grouped over the models, with per-model
@@ -262,8 +268,9 @@ class GdnFunction(torch.autograd.Function):
     """Differentiable GDN/IGDN on a ``(rows, C)`` matrix.
 
     Forward: the kernel on the card, the plain version on the CPU.
-    Backward, in plain PyTorch: with ``pool = x^2 @ gamma + beta``,
-    ``g`` the incoming gradient and ``t = dL/dpool``
+    Backward, in plain PyTorch: with ``pool = x^2 @ gamma + beta``
+    (``gamma[k][c]``, symmetric or not), ``g`` the incoming gradient and
+    ``t = dL/dpool``
     (GDN: ``-0.5 * g * x * pool^-1.5``; IGDN: ``0.5 * g * x * pool^-0.5``),
 
         grad_x     = g * scale + 2 * x * (t @ gamma.T)
@@ -383,10 +390,10 @@ def _needs_grad(*tensors):
 def gdn_2d(x, gamma, beta, inverse=False):
     """GDN (or IGDN) on a ``(rows, 128)`` fp32 or bf16 matrix.
 
-    Counterpart of ``gdn_pallas_2d``: gamma is rounded to x's dtype,
-    beta stays fp32, the output has x's dtype. When an operand requires
-    grad the fp32 call goes through :class:`GdnFunction`; a bf16 one
-    raises.
+    Counterpart of ``gdn_pallas_2d``: gamma, ``(128, 128)`` indexed
+    ``[k][c]``, is rounded to x's dtype, beta stays fp32, the output has
+    x's dtype. When an operand requires grad the fp32 call goes through
+    :class:`GdnFunction`; a bf16 one raises.
     """
     _check_operands(x, gamma, beta, (torch.float32, torch.bfloat16))
     if _needs_grad(x, gamma, beta):

@@ -24,6 +24,13 @@ carry across unchanged. A VAE has no density, so its sidecar says
 ``"nb_itvs_per_side": null``; the reference package loads such a
 checkpoint, although its own VAE trainer fails to write one.
 
+The scale hyperprior's :class:`HyperpriorState` has no counterpart in
+the reference package; it is written under the same scheme
+(``.params['all']``, ``.opt.count``, ``.opt.mu['all']``,
+``.opt.nu['all']``, ``.step``: its parameters and Adam moments are one
+vector each, which ``train/hyperprior.py::leaves`` cuts into the named
+leaves), its kernels in this package's layouts.
+
 Many leaves share a shape (all GDN gammas are (128, 128)), so a renamed,
 missing, extra or reshaped key raises at load instead of mapping onto
 another tensor. An existing checkpoint is not overwritten unless asked.
@@ -39,6 +46,10 @@ from autoencoder_based_image_compression_tpu_torch.constants import CONV_NAMES
 from autoencoder_based_image_compression_tpu_torch.models.dense_eae import DenseEaeState
 from autoencoder_based_image_compression_tpu_torch.models.vae import VaeState
 from autoencoder_based_image_compression_tpu_torch.ops.density import DensityTable
+from autoencoder_based_image_compression_tpu_torch.train.hyperprior import (
+    SIZE as HYPERPRIOR_SIZE,
+    HyperpriorState,
+)
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     AdamState,
     TrainState,
@@ -191,11 +202,13 @@ def _numpy_group(prefix, tensors):
             for (name, tensor) in tensors.items()}
 
 
-def _svhn_groups(arrays, what, leaf_keys):
-    """``(params, momentum, leaves)`` of an SVHN state's arrays, numpy;
-    raises on a missing or unexpected key and on momentum buffers whose
-    names differ from the parameters'."""
-    groups = {".params": {}, ".momentum": {}}
+def _groups(arrays, what, prefixes, leaf_keys):
+    """``({prefix: {name: array}}, leaves)`` of a state's arrays, numpy:
+    the dict entries under each of ``prefixes`` (the first the
+    parameters) and the other keys, which must be ``leaf_keys``; raises on
+    a missing or unexpected key and on a group whose names differ from
+    the parameters'."""
+    groups = {prefix: {} for prefix in prefixes}
     leaves = {}
     for (key, value) in arrays.items():
         (prefix, name) = _split_key(key)
@@ -205,11 +218,18 @@ def _svhn_groups(arrays, what, leaf_keys):
             leaves[key] = value
     missing = [key for key in leaf_keys if key not in leaves]
     extra = sorted(set(leaves) - set(leaf_keys))
-    if missing or extra or not groups[".params"]:
+    if missing or extra or not groups[prefixes[0]]:
         raise ValueError(f"Not a {what}: missing {missing}, unexpected {extra}, "
-                         f"{len(groups['.params'])} parameters.")
-    if set(groups[".momentum"]) != set(groups[".params"]):
-        raise ValueError(".momentum and .params hold different names.")
+                         f"{len(groups[prefixes[0]])} parameters.")
+    for prefix in prefixes[1:]:
+        if set(groups[prefix]) != set(groups[prefixes[0]]):
+            raise ValueError(f"{prefix} and {prefixes[0]} hold different names.")
+    return (groups, leaves)
+
+
+def _svhn_groups(arrays, what, leaf_keys):
+    """``(params, momentum, leaves)`` of an SVHN state's arrays (:func:`_groups`)."""
+    (groups, leaves) = _groups(arrays, what, (".params", ".momentum"), leaf_keys)
     return (groups[".params"], groups[".momentum"], leaves)
 
 
@@ -259,11 +279,33 @@ def vae_state_from_jax(arrays):
                     step=_tensors(leaves, numpy.int32)[".step"])
 
 
+def hyperprior_state_to_arrays(state):
+    """A :class:`HyperpriorState` -> ``{checkpoint key: numpy array}``."""
+    return {**_numpy_group(".params", state.params), ".opt.count": state.opt.count.cpu().numpy(),
+            **_numpy_group(".opt.mu", state.opt.mu), **_numpy_group(".opt.nu", state.opt.nu),
+            ".step": state.step.cpu().numpy()}
+
+
+def hyperprior_state_from_arrays(arrays):
+    """The inverse of :func:`hyperprior_state_to_arrays`: a
+    :class:`HyperpriorState` of CPU tensors (raises as :func:`_groups`, and
+    on vectors of another length than the model's parameters)."""
+    (groups, leaves) = _groups(arrays, "hyperprior state", (".params", ".opt.mu", ".opt.nu"),
+                               (".opt.count", ".step"))
+    if any(numpy.shape(group.get("all")) != (HYPERPRIOR_SIZE,) for group in groups.values()):
+        raise ValueError(f"Not a hyperprior state: its vectors are not ({HYPERPRIOR_SIZE},).")
+    ints = _tensors(leaves, numpy.int32)
+    (params, mu, nu) = (_tensors(groups[prefix]) for prefix in (".params", ".opt.mu", ".opt.nu"))
+    return HyperpriorState(params=params, opt=AdamState(ints[".opt.count"], mu, nu),
+                           step=ints[".step"])
+
+
 # State type -> (to reference arrays, from reference arrays).
 _CONVERTERS = {
     TrainState: (state_to_jax, state_from_jax),
     DenseEaeState: (dense_state_to_jax, dense_state_from_jax),
     VaeState: (vae_state_to_jax, vae_state_from_jax),
+    HyperpriorState: (hyperprior_state_to_arrays, hyperprior_state_from_arrays),
 }
 
 
@@ -274,8 +316,9 @@ def _converters(state):
 
 
 def save_checkpoint(path, state, allow_overwrite=False):
-    """Writes a state (:class:`TrainState`, :class:`DenseEaeState` or
-    :class:`VaeState`) to ``<path>.npz`` and then ``<path>.json`` (meta)."""
+    """Writes a state (:class:`TrainState`, :class:`DenseEaeState`,
+    :class:`VaeState` or :class:`HyperpriorState`) to ``<path>.npz`` and
+    then ``<path>.json`` (meta)."""
     npz_path = path + ".npz"
     if os.path.isfile(npz_path) and not allow_overwrite:
         raise FileExistsError(

@@ -114,8 +114,10 @@ def phase_line(train_epoch):
     phases = train_epoch.phase_ms()
     if phases is None:
         return None
-    gdn = f" (GDN backward {phases['gdn_backward']:.3f})" if "gdn_backward" in phases else ""
-    parts = [f"{name} {phases[name]:.3f}" + (gdn if name == "backward" else "")
+    inner = {"forward": f" (entropy {phases['entropy']:.3f})" if "entropy" in phases else "",
+             "backward": (f" (GDN backward {phases['gdn_backward']:.3f})"
+                          if "gdn_backward" in phases else "")}
+    parts = [f"{name} {phases[name]:.3f}" + inner.get(name, "")
              for name in ("gather", "density", "forward", "backward", "optimizer")
              if name in phases]
     return f"Device ms a step by phase: {', '.join(parts)}; step {phases['step']:.3f}"

@@ -146,22 +146,26 @@ def current_lr(gamma_scaling, step):
     return lr
 
 
-def adam_update(grads, opt_state, params, gamma_scaling):
-    """One Adam step. Returns ``(new_params, new_opt_state)``.
+def adam_apply(grads, opt_state, params, lr):
+    """One Adam step at the learning rate ``lr``, leaf by leaf. Returns
+    ``(new_params, new_opt_state)``.
 
     ``mu = 0.9 mu + 0.1 g``; ``nu = 0.999 nu + 0.001 g^2``; both divided
     by ``1 - decay^(count + 1)``; the parameters move by
-    ``-lr(count) * mu_hat / (sqrt(nu_hat) + 1e-8)``. For M stacked
-    models, ``gamma_scaling`` is their ``(M, 2)`` boundaries and the
-    count, the corrections and the rate are ``(M,)``, each applied to
-    its model's slice of every leaf.
+    ``-lr * mu_hat / (sqrt(nu_hat) + 1e-8)``. ``lr`` is a number, a
+    scalar tensor, or for M stacked models an ``(M,)`` tensor, each
+    applied to its model's slice of every leaf (as are the corrections
+    of an ``(M,)`` count). Every caller goes through this one per-leaf
+    arithmetic: the EAE's scheduled rate (:func:`adam_update`) and the
+    hyperprior's constant one (``train/hyperprior.py``).
     """
     count_inc = opt_state.count + 1
-    lr = learning_rate(gamma_scaling, opt_state.count)
     correction_1 = 1.0 - ADAM_B1 ** count_inc.to(torch.float32)
     correction_2 = 1.0 - ADAM_B2 ** count_inc.to(torch.float32)
 
     def per_model(value, leaf):  # (M,) -> (M, 1, ...) against an (M, ...) leaf
+        if not torch.is_tensor(value):
+            return value
         return value.reshape(value.shape + (1,) * (leaf.dim() - value.dim()))
 
     (new_params, new_mu, new_nu) = ({}, {}, {})
@@ -173,6 +177,16 @@ def adam_update(grads, opt_state, params, gamma_scaling):
         new_params[name] = params[name] - per_model(lr, grad) * update
         (new_mu[name], new_nu[name]) = (mu, nu)
     return (new_params, AdamState(count=count_inc, mu=new_mu, nu=new_nu))
+
+
+def adam_update(grads, opt_state, params, gamma_scaling):
+    """The EAE's Adam step: :func:`adam_apply` at the rate of the
+    gamma-keyed schedule read at the count *before* the increment
+    (:func:`learning_rate`). For M stacked models, ``gamma_scaling`` is
+    their ``(M, 2)`` boundaries and the count, the corrections and the
+    rate are ``(M,)``. Returns ``(new_params, new_opt_state)``.
+    """
+    return adam_apply(grads, opt_state, params, learning_rate(gamma_scaling, opt_state.count))
 
 
 def init_train_state(generator, bin_width_init=1.0, learn_bin_widths=False,

@@ -28,7 +28,12 @@ projections and the write into the static buffers) and ``step_end``
 before the step counter advances; these tile the step. Inside
 ``backward``, each GDN site's backward lies between
 ``gdn_backward_begin`` and ``gdn_backward_end``. A density pre-fit step
-gives ``step``, ``density`` and ``step_end``.
+gives ``step``, ``density`` and ``step_end``. The scale hyperprior's
+step (``train/hyperprior.py``) has no density phase and splits its
+``forward`` with two marks of its own (:data:`FORWARD_MARKS`):
+``forward`` opens the analysis transform, ``entropy`` the hyper networks
+and both likelihoods, ``synthesis`` the synthesis transform, the
+distortion and the loss.
 """
 
 import contextlib
@@ -40,7 +45,9 @@ from torch._C._profiler import _RecordFunctionFast
 # the mark, but for ``step``'s, the gather.
 STEP_MARKS = ("step", "density", "forward", "backward", "optimizer", "step_end")
 GDN_BACKWARD = ("gdn_backward_begin", "gdn_backward_end")
-MARKS = STEP_MARKS + GDN_BACKWARD
+# Marks inside ``forward``, which they split; they tile nothing of their own.
+FORWARD_MARKS = ("entropy", "synthesis")
+MARKS = STEP_MARKS + GDN_BACKWARD + FORWARD_MARKS
 
 _recorder = None
 

@@ -189,6 +189,16 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    64), the TF graph replaced by a CPU stand-in: ``max_abs_delta_db`` at
    most 0.05. Then every kernel against its plain version at each row
    count these paths launched it at;
+13. the scale hyperprior (``train/hyperprior.py``) at the paper's batch of
+   8 crops of 256 x 256: the fp32 GDN and IGDN kernels at its sites' rows
+   (131,072, 32,768 and 8,192) with a gamma that is not symmetric, against
+   their plain versions (the transposed gamma must miss that tolerance
+   100 times over) and timed, ``GdnFunction``'s gradients against
+   autograd through the plain version; then a graphed epoch of 3 batches
+   from a fresh state: its capture launches 3 ``gdn_f32`` + 3 ``igdn_f32``
+   a step at those rows and marks ``step, forward, entropy, synthesis,
+   backward, optimizer, step_end``, a replay counts none, and one eager
+   ``train_step`` launches 3 + 3;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 10. the result line ``{"ok": true, "device": {...}}``, last.
 
@@ -277,6 +287,12 @@ AVG_ROOT = os.path.join(REPO, "results", "eae_avg")
 COMMITTED_STABILITY = os.path.join(RESULTS_ROOT, "kodak_rd_stability")
 RESILIENT_TIMEOUT_S = 600
 (STATS_BATCH, PARITY_IMAGES, PARITY_PIXELS) = (20, 2, 64)
+# The scale hyperprior (phase 13): the paper's batch of 8 crops of 256 x
+# 256, a graphed epoch of 3 batches; its GDN kernels at the three sites'
+# rows with a gamma that is not symmetric, held to the plain version at
+# fp32's tolerance, which the same gamma transposed must miss by at least
+# TRANSPOSED_MISS times.
+(HYPERPRIOR_BATCH, HYPERPRIOR_STEPS, TRANSPOSED_MISS) = (8, 3, 100.0)
 ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64,
         "H/16": BATCH * HEIGHT * WIDTH // 256,
         # One of two shards of the serving batch: a height band or a data block.
@@ -293,7 +309,11 @@ ROWS = {"H/4": BATCH * HEIGHT * WIDTH // 16, "H/8": BATCH * HEIGHT * WIDTH // 64
         "E/16": STATS_BATCH * TRAIN_CROP ** 2 // 256,
         "P/4": PARITY_IMAGES * PARITY_PIXELS ** 2 // 16,
         "P/8": PARITY_IMAGES * PARITY_PIXELS ** 2 // 64,
-        "P/16": PARITY_IMAGES * PARITY_PIXELS ** 2 // 256}
+        "P/16": PARITY_IMAGES * PARITY_PIXELS ** 2 // 256,
+        # The scale hyperprior's training batch: GDN sites at H/2, H/4, H/8.
+        "R/2": HYPERPRIOR_BATCH * TRAIN_CROP ** 2 // 4,
+        "R/4": HYPERPRIOR_BATCH * TRAIN_CROP ** 2 // 16,
+        "R/8": HYPERPRIOR_BATCH * TRAIN_CROP ** 2 // 64}
 TRAIN_SHAPES = ("T/4", "T/8", "T/16")
 SERVE_SHAPES = ("H/4", "H/8", "H/16")
 BENCH_SHAPES = ("B/4", "B/8")
@@ -301,6 +321,7 @@ SHARD_SHAPES = ("S/4", "S/8", "S/16")
 PROBE_SHAPES = ("A/4", "A/8", "A/16")
 STATS_SHAPES = ("E/4", "E/8", "E/16")
 PARITY_SHAPES = ("P/4", "P/8", "P/16")
+HYPERPRIOR_SHAPES = ("R/2", "R/4", "R/8")
 # The kernels line's shapes of a training path and of an RD study.
 STACKED_ENTRIES = {"gdn_f32_stacked": TRAIN_SHAPES, "igdn_f32_stacked": TRAIN_SHAPES}
 TRAINING_ENTRIES = {"gdn_f32": TRAIN_SHAPES, "igdn_f32": TRAIN_SHAPES, **STACKED_ENTRIES}
@@ -1141,6 +1162,164 @@ def phase_gradient():
             except error:
                 continue
             raise AssertionError(f"{name}: an undifferentiable call with grad did not raise")
+
+
+def asymmetric_gdn_inputs(rows, seed):
+    """``(x, gamma, beta)`` on the card: ``x`` as :func:`kernel_inputs`
+    draws it, ``gamma`` in the kernel's ``[k][c]`` layout with ``0.1`` on
+    its diagonal and ``U(0, 0.02)`` off it, each entry drawn on its own
+    (far from symmetric, as a learned one is), ``beta`` in ``[1, 1.5)``."""
+    generator = torch.Generator(DEVICE).manual_seed(seed)
+    x = 4.0 * torch.randn((rows, 128), device=DEVICE, generator=generator)
+    gamma = 0.02 * torch.rand((128, 128), device=DEVICE, generator=generator)
+    gamma.diagonal().fill_(0.1)
+    beta = 1.0 + 0.5 * torch.rand((128,), device=DEVICE, generator=generator)
+    return (x, gamma, beta)
+
+
+def phase_hyperprior(kernel_results):
+    """The scale hyperprior's GDN sites and its graphed training step.
+
+    At each site's rows (131,072, 32,768 and 8,192 at a batch of 8 crops of
+    256 x 256), with a gamma that is not symmetric: the fp32 GDN and IGDN
+    kernels against their plain versions at fp32's tolerance (the plain
+    version on the transposed gamma must miss it by
+    :data:`TRANSPOSED_MISS` times, so the check sees an index the wrong
+    way round), timed against their bound into ``kernel_results``; then
+    ``GdnFunction``'s gradients against autograd through the plain
+    version, within 1e-4 of each gradient's largest entry (as
+    :func:`phase_gradient`). Then a fresh state trains through a graphed
+    epoch of :data:`HYPERPRIOR_STEPS` batches: its capture counts the
+    warm-up step's and the capture's launches, 3 + 3 a step at those
+    rows, and marks every phase; a replay counts none; one eager
+    ``train_step`` launches 3 + 3. Returns the path's launches."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
+    from autoencoder_based_image_compression_tpu_torch.train import hyperprior as hp
+
+    for (seed, name) in enumerate(("gdn_f32", "igdn_f32")):
+        inverse = VARIANTS[name][1]
+        for shape in HYPERPRIOR_SHAPES:
+            rows = ROWS[shape]
+            (x, gamma, beta) = asymmetric_gdn_inputs(rows, 60 + seed)
+            got = gk.gdn_2d(x, gamma, beta, inverse=inverse)
+            expected = gk.gdn_2d_plain(x, gamma, beta, inverse=inverse)
+            transposed = gk.gdn_2d_plain(x, gamma.t().contiguous(), beta, inverse=inverse)
+            torch.cuda.synchronize()
+            (max_abs, max_rel, tolerance, _) = check_kernel(name, rows, got, expected, None)
+            # How far past fp32's tolerance (rtol 1e-5, atol 1e-6) the
+            # transposed gamma lands, at its worst element.
+            miss = float(((transposed - expected).abs() / (1e-6 + 1e-5 * expected.abs())).max())
+            if miss < TRANSPOSED_MISS:
+                raise AssertionError(f"{name} at {rows} rows: the transposed gamma lands only "
+                                     f"{miss:.1f} times the tolerance away")
+            del got, expected, transposed
+            nbytes = 2 * x.numel() * x.element_size()
+            inputs = [x] + [x.clone() for _ in range(TIMING_FOOTPRINT_BYTES // nbytes)]
+            (ms, ms_eager) = time_ms(lambda t: gk.gdn_2d(t, gamma, beta, inverse=inverse),
+                                     inputs)
+            (plain_ms, _) = time_ms(lambda t: gk.gdn_2d_plain(t, gamma, beta, inverse=inverse),
+                                    inputs)
+            del inputs
+            (bound_ms, bound_by) = bound(rows, torch.float32, False)
+            kernel_results[(name, shape)] = dict(max_abs_err=max_abs, ms=ms, ms_eager=ms_eager,
+                                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                                 bound_by=bound_by)
+            upstream = torch.randn(x.shape, device=DEVICE,
+                                   generator=torch.Generator(DEVICE).manual_seed(70 + seed))
+            grads = {}
+            for (label, fn) in (("kernel", gk.gdn_2d), ("plain", gk.gdn_2d_plain)):
+                leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+                grads[label] = torch.autograd.grad(fn(*leaves, inverse=inverse), leaves,
+                                                   upstream)
+            gaps = [_gap_to_max(got, expected)
+                    for (got, expected) in zip(grads["kernel"], grads["plain"])]
+            print(f"  {name:8s} gamma not symmetric, rows {rows:6d} ({shape}): max abs err "
+                  f"{max_abs:.3e}, max rel err {max_rel:.3e} [{tolerance}], the transposed "
+                  f"gamma {miss:.3e} times the tolerance away; tile {gk.tile_rows(rows)}; "
+                  f"kernel {ms:.4f} ms replayed, {ms_eager:.4f} ms eager, plain "
+                  f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by}), share of "
+                  f"bound {100 * bound_ms / ms:.0f} %; gradient gap / largest entry grad_x "
+                  f"{gaps[0]:.3e}, grad_gamma {gaps[1]:.3e}, grad_beta {gaps[2]:.3e} [1e-4]")
+            if not all(gap <= 1e-4 for gap in gaps):
+                raise AssertionError(f"{name} at {rows} rows: gradient gaps {gaps}")
+            del grads, upstream, x
+
+    fns = hp.make_hyperprior_step_fns()
+    generator = torch.Generator(DEVICE).manual_seed(80)
+    state = hp.init_hyperprior_state(generator, DEVICE)
+    dataset = torch.randint(0, 256, (HYPERPRIOR_STEPS * HYPERPRIOR_BATCH, TRAIN_CROP,
+                                     TRAIN_CROP, 3), dtype=torch.uint8, device=DEVICE,
+                            generator=generator)
+    rows = numpy.arange(HYPERPRIOR_STEPS * HYPERPRIOR_BATCH).reshape(HYPERPRIOR_STEPS,
+                                                                     HYPERPRIOR_BATCH)
+    noise = torch.Generator(DEVICE).manual_seed(81)
+    per_step = {"gdn_f32": 3, "igdn_f32": 3}
+    site_rows = {ROWS[shape]: GRAPH_PREP_STEPS for shape in HYPERPRIOR_SHAPES}
+    captures = len(epoch_graph.CAPTURES)
+    gk.reset_launch_counts()
+    state = fns["train_epoch"](state, dataset, rows, noise)
+    torch.cuda.synchronize()
+    expect_launches("hyperprior graphed epoch, its capture", dict(gk.LAUNCHES),
+                    {name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})
+    for name in per_step:
+        seen = {n: count for ((variant, n), count) in gk.LAUNCH_ROWS.items() if variant == name}
+        print(f"  {name} rows in the capture: {seen}")
+        if seen != site_rows:
+            raise AssertionError(f"hyperprior capture: {name} at rows {seen}, "
+                                 f"expected {site_rows}")
+    marks = epoch_graph.CAPTURES[captures]["marks"]
+    expected_marks = (("step", "forward", "entropy", "synthesis", "backward")
+                      + ("gdn_backward_begin", "gdn_backward_end") * 6
+                      + ("optimizer", "step_end"))
+    if tuple(marks) != expected_marks:
+        raise AssertionError(f"hyperprior capture marks {marks}")
+    gk.reset_launch_counts()
+    state = fns["train_epoch"](state, dataset, rows, noise)
+    torch.cuda.synchronize()
+    expect_launches("hyperprior graphed epoch, a replay (no Python call, so no count)",
+                    dict(gk.LAUNCHES), {})
+    steps = 2 * HYPERPRIOR_STEPS
+    if int(state.step) != steps or not bool(torch.isfinite(state.params["all"]).all()):
+        raise AssertionError(f"hyperprior: step {int(state.step)}, expected {steps}, "
+                             "or parameters not finite")
+    gk.reset_launch_counts()
+    batch = dataset[torch.as_tensor(rows[0], device=DEVICE)]
+    fns["train_step"](state, batch, noise)
+    torch.cuda.synchronize()
+    launches = dict(gk.LAUNCHES)
+    expect_launches("one hyperprior train_step", launches, per_step)
+    phases = fns["train_epoch"].phase_ms()
+    print("  hyperprior graphed step, ms by phase: " + ", ".join(
+        f"{name} {ms:.3f}" for (name, ms) in phases.items()))
+    return {"hyperprior training": launches}
+
+
+def kernel_entries(on_path, path_launches, kernel_results):
+    """The kernels line's entries: each ``(name, path, shape)`` of
+    ``on_path`` with its launches on that path and its times."""
+    kernels = []
+    for (name, path, shape) in on_path:
+        launches = path_launches[path][name]
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched on the {path} path")
+        result = kernel_results[(name, shape)]
+        stacked = name in STACKED_VARIANTS
+        single = STACKED_VARIANTS[name][0] if stacked else name
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{TPU_KERNELS}:{VARIANTS[single][5]}", "launches": launches,
+            "max_abs_err": result["max_abs_err"], "ms": result["ms"],
+            "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
+            "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
+            "path": path, "rows": ROWS[shape.split()[0]],
+            "models": (1 if shape.endswith("x1") else STACKED_MODELS) if stacked else 1})
+    return kernels
+
+
+# The hyperprior's entries of the kernels line (phase 13).
+HYPERPRIOR_ON_PATH = [(name, "hyperprior training", shape) for name in ("gdn_f32", "igdn_f32")
+                      for shape in HYPERPRIOR_SHAPES]
 
 
 def _uniform_noise(shape, seed):
@@ -3321,6 +3500,10 @@ def main():
     check_seen_rows(rows_seen, "phase 12")
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    print(f"phase 13: the scale hyperprior (GDN sites with a gamma not symmetric, the graphed "
+          f"step) [{card}]")
+    path_launches.update(phase_hyperprior(kernel_results))
+
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
     # are per variant: a variant's shapes on one path share them).
@@ -3381,22 +3564,8 @@ def main():
     # collect_stats at a batch of 20 crops, the RD studies at the serving
     # batch's, the parity harness at two 64 x 64 images'.
     on_path += campaign_entries
-    kernels = []
-    for (name, path, shape) in on_path:
-        launches = path_launches[path][name]
-        if launches <= 0:
-            raise AssertionError(f"{name} never launched on the {path} path")
-        result = kernel_results[(name, shape)]
-        stacked = name in STACKED_VARIANTS
-        single = STACKED_VARIANTS[name][0] if stacked else name
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{TPU_KERNELS}:{VARIANTS[single][5]}", "launches": launches,
-            "max_abs_err": result["max_abs_err"], "ms": result["ms"],
-            "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
-            "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
-            "path": path, "rows": ROWS[shape.split()[0]],
-            "models": (1 if shape.endswith("x1") else STACKED_MODELS) if stacked else 1})
+    on_path += HYPERPRIOR_ON_PATH
+    kernels = kernel_entries(on_path, path_launches, kernel_results)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
