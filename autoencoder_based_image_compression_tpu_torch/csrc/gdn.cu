@@ -6,6 +6,9 @@
 //                                                           gdn_bf16_kernel<inverse>
 //       with a model axis (the JAX ladder's vmap of it)     -> gdn_f32_kernel<RM, inverse, false, true>
 //   _gdn_quantize_kernel  (entry gdn_quantize_pallas_2d) -> gdn_f32_kernel<RM, inverse, true>
+// and adds the fp32 gradient, which replaces no TPU kernel (below):
+//                                                        gdn_bwd_f32_kernel<RM, inverse>
+//                                                        gdn_bwd_reduce_kernel
 //
 // Per row of a (rows, 128) channels-last matrix:
 //   pool_c = sum_k (x_k * x_k) * gamma[k, c] + beta_c
@@ -73,6 +76,40 @@
 // The ragged row tail is zero-filled on load and masked on store; there is no
 // padding copy. The quantiser divides with IEEE '/' and rounds half to even
 // with rintf, matching jnp.round; build without --use_fast_math.
+//
+// The fp32 gradient (gdn_bwd_f32_kernel<RM, inverse>, gdn_bwd_reduce_kernel)
+// replaces no TPU kernel: the reference package differentiates the plain
+// einsum, and so did the port's GdnFunction in PyTorch, a chain of three
+// GEMMs and a dozen elementwise passes, each a round trip of a (rows, 128)
+// tensor, 15-25 % of a training step. Per row, with g the incoming gradient:
+//   pool = x^2 @ gamma + beta
+//   t    = -0.5 * g * x * pool^-1.5  (GDN)   or   0.5 * g * x * pool^-0.5  (IGDN)
+//   grad_x     = g * scale + 2 * x * (t @ gamma^T),  scale = pool^-0.5 or pool^0.5
+//   grad_gamma = (x^2)^T @ t,   grad_beta = sum of t over the rows.
+// What bounds it: three contractions of 2 * 128^2 flops a row (98,304 a row)
+// in exact fp32 on the CUDA cores, against 1.5 KB a row (x and g read,
+// grad_x written): 1.47 ns a row against 0.46 ns for its bytes. Bound by
+// operations with the bytes close behind, as the forward is.
+//
+// Design, gradient: one pass over a tile of rows (64, or 32 for small
+// sites), its three contractions register-tiled as the forward's, gamma
+// (64 KB) loaded once a block. Each warp contracts its own rows: the pool
+// (the forward's loop), then in registers t and g * scale, t staged in shared
+// memory; then t @ gamma^T against the same copy of gamma, whose 16-byte
+// chunks are XOR-swizzled so that a lane reading its four k's column-wise is
+// as free of bank conflicts as one reading a row; grad_x is written once.
+// x and g arrive by cp.async, double-buffered, and are read from device
+// memory once; pool, scale and t never leave the SM. Then the whole block
+// adds (x^2)^T t of the tile into grad_gamma, an 8 x 8 block a thread held
+// in registers across the tiles the block walks, and t into grad_beta.
+// There are no float atomics: each block writes its partial to scratch
+// (the tile pass's grid is sized where the forward's is, persistent_grid,
+// and aeic_gdn_backward_blocks tells the caller how many partials to hold),
+// and gdn_bwd_reduce_kernel sums the partials in a fixed order, so two runs
+// (a graph's replay and an eager call) give the same bits. Every sum is
+// fmaf in a fixed order; sqrt and division are IEEE. With a model axis
+// (blockIdx.y, row stride M * 128) one launch serves the ladder's models;
+// one model is a stack of one.
 //
 // The same library holds the phase marks of a graphed training step
 // (aeic_mark_*, section "marks" below). They replace no TPU kernel: a
@@ -467,32 +504,419 @@ gdn_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g
   cp_async_wait<0>();
 }
 
+// ------------------------------------------------------------ backward ----
+
+// A block's share of grad_gamma ([k][c]) and grad_beta, summed over the tiles it walks.
+constexpr int kPartialFloats = kChannels * kChannels + kChannels;
+
+constexpr int bwd_smem_bytes(int tile_rows) {
+  // gamma, x and g of the tile double-buffered, t of the tile.
+  return (kChannels * kChannels + 5 * tile_rows * kChannels) * static_cast<int>(sizeof(float));
+}
+
+// Where gamma[k][4 * chunk .. + 3] sits in shared memory: the 16-byte chunk
+// is XORed with (k / 4) % 8, so that a row of gamma (the pool) and the same
+// four channels of the rows k = 4 * tx + j of 8 lanes (t @ gamma^T) both
+// fall into distinct banks.
+__device__ __forceinline__ int gamma_at(int k, int chunk) {
+  return k * kChannels + 4 * (chunk ^ ((k >> 2) & 7));
+}
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+
+// t = dL/dpool of one element, and the gradient's direct term's factor
+// `scale`: pool^-0.5 (GDN) or pool^0.5 (IGDN). The plain version's
+// arithmetic, in its order.
+template <bool kInverse>
+__device__ __forceinline__ float grad_pool(float g, float x, float pool, float& scale) {
+  const float root = sqrtf(pool);
+  if (kInverse) {
+    scale = root;
+    return 0.5f * g * x / root;
+  }
+  scale = 1.0f / root;
+  return -0.5f * g * x * scale / pool;
+}
+
+template <int RM, bool kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_out,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   float* __restrict__ grad_x, float* __restrict__ partials, int64_t rows,
+                   int want_x, int want_params) {
+  constexpr int kWarpRows = kLanesY * RM;
+  constexpr int kTileRows = kWarps * kWarpRows;
+  const int64_t row_stride = static_cast<int64_t>(gridDim.y) * kChannels;
+  x += static_cast<int64_t>(blockIdx.y) * kChannels;
+  grad_out += static_cast<int64_t>(blockIdx.y) * kChannels;
+  if (want_x) grad_x += static_cast<int64_t>(blockIdx.y) * kChannels;
+  gamma += static_cast<int64_t>(blockIdx.y) * kChannels * kChannels;
+  beta += static_cast<int64_t>(blockIdx.y) * kChannels;
+  if (want_params) {
+    partials += (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kPartialFloats;
+  }
+  extern __shared__ float4 smem[];
+  float* gam = reinterpret_cast<float*>(smem);  // [k][c], chunks swizzled (gamma_at)
+  float* xs_all = gam + kChannels * kChannels;  // [2][kTileRows][128]: x, then x^2
+  float* gs_all = xs_all + 2 * kTileRows * kChannels;  // [2][kTileRows][128]: g, then g * scale
+  float* ts = gs_all + 2 * kTileRows * kChannels;      // [kTileRows][128]: t
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tx = lane % kLanesX;  // channels 4 * tx + kQuadStep * q .. + 3
+  const int ty = lane / kLanesX;  // rows ty + kLanesY * i of the warp's rows
+  const int wrow = warp * kWarpRows;  // the warp's first row in the tile
+  // In the grad_gamma pass the thread owns k = 4 * a + 64 * p + j and
+  // c = 4 * tx + 64 * p + j: an 8 x 8 block of the 128 x 128.
+  const int a = kLanesY * warp + ty;
+
+  for (int i = tid; i < kChannels * kChannels / 4; i += kThreads) {
+    cp_async16(gam + gamma_at(i >> 5, i & 31), gamma + 4 * i, 16);
+  }
+  // Each warp stages its own rows of x and g.
+  auto load_tile = [&](int buf, int64_t tile) {
+    float* xd = xs_all + (buf * kTileRows + wrow) * kChannels;
+    float* gd = gs_all + (buf * kTileRows + wrow) * kChannels;
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) {
+      const int64_t row = tile * kTileRows + wrow + r;
+      const bool valid = row < rows;
+      const int64_t at = valid ? row * row_stride + 4 * lane : 0;
+      cp_async16(xd + r * kChannels + 4 * lane, x + at, valid ? 16 : 0);
+      cp_async16(gd + r * kChannels + 4 * lane, grad_out + at, valid ? 16 : 0);
+    }
+  };
+  const int64_t num_tiles = (rows + kTileRows - 1) / kTileRows;
+  int64_t tile = blockIdx.x;
+  if (tile < num_tiles) load_tile(0, tile);
+  cp_async_commit();
+
+  float4 beta_q[kQuads];
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    beta_q[q] = *reinterpret_cast<const float4*>(beta + 4 * tx + kQuadStep * q);
+  }
+  float part[8][8];  // [4 * p + j of k][4 * p + j of c]
+  float part_beta[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    part_beta[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[i][j] = 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int buf = 0; tile < num_tiles; tile += gridDim.x, buf ^= 1) {
+    const int64_t next = tile + gridDim.x;
+    if (next < num_tiles) load_tile(buf ^ 1, next);
+    cp_async_commit();   // possibly empty, so that one group is always pending
+    cp_async_wait<1>();  // this tile's rows of this warp have landed
+    __syncwarp();
+
+    float* xs = xs_all + buf * kTileRows * kChannels;
+    float* gs = gs_all + buf * kTileRows * kChannels;
+    const float* xw = xs + (wrow + ty) * kChannels;
+
+    // The pool of the warp's rows: the forward kernel's contraction, x
+    // squared on the way, gamma's rows read through the swizzle.
+    float acc[RM][4 * kQuads];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4 * kQuads; ++j) acc[i][j] = 0.0f;
+    }
+    {
+      float4 s[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        s[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * kChannels);
+      }
+      float4 g[kQuads];
+      float4 h[kQuads];
+      load_gamma(g, gam + 4 * tx);
+#pragma unroll 2
+      for (int k = 0; k < kChannels; k += 4) {
+        const int kn = (k + 4) & (kChannels - 1);
+        const float* row_k = gam + 4 * (tx ^ ((k >> 2) & 7));
+        float4 sn[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          sn[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * kChannels + kn);
+          s[i].x *= s[i].x;
+          s[i].y *= s[i].y;
+          s[i].z *= s[i].z;
+          s[i].w *= s[i].w;
+        }
+        load_gamma(h, row_k + (k + 1) * kChannels);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].x, g);
+        load_gamma(g, row_k + (k + 2) * kChannels);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].y, h);
+        load_gamma(h, row_k + (k + 3) * kChannels);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].z, g);
+        load_gamma(g, gam + 4 * (tx ^ ((kn >> 2) & 7)) + kn * kChannels);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          fma_row(acc[i], s[i].w, h);
+          s[i] = sn[i];
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the warp's rows of x
+
+    // t and g * scale of the lane's elements; t of a row past the end is 0.
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int r = wrow + ty + kLanesY * i;
+      const bool valid = tile * kTileRows + r < rows;
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const int at = r * kChannels + 4 * tx + kQuadStep * q;
+        const float4 xv = *reinterpret_cast<const float4*>(xs + at);
+        const float4 gv = *reinterpret_cast<const float4*>(gs + at);
+        float4 t, d;
+        t.x = grad_pool<kInverse>(gv.x, xv.x, acc[i][4 * q + 0] + beta_q[q].x, d.x);
+        t.y = grad_pool<kInverse>(gv.y, xv.y, acc[i][4 * q + 1] + beta_q[q].y, d.y);
+        t.z = grad_pool<kInverse>(gv.z, xv.z, acc[i][4 * q + 2] + beta_q[q].z, d.z);
+        t.w = grad_pool<kInverse>(gv.w, xv.w, acc[i][4 * q + 3] + beta_q[q].w, d.w);
+        if (!valid) t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(ts + at) = t;
+        if (want_x) {
+          *reinterpret_cast<float4*>(gs + at) =
+              make_float4(gv.x * d.x, gv.y * d.y, gv.z * d.z, gv.w * d.w);
+        }
+      }
+    }
+    __syncwarp();  // the warp's rows of t are in place
+
+    if (want_x) {
+      // u = t @ gamma^T of the warp's rows: the lane's k are 4 * tx + 64 * q + j,
+      // whose swizzle is tx % 8 whatever q and j.
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4 * kQuads; ++j) acc[i][j] = 0.0f;
+      }
+      const float* tw = ts + (wrow + ty) * kChannels;
+      const float* g_rows = gam + 4 * tx * kChannels;
+#pragma unroll 2
+      for (int cc = 0; cc < kChannels / 4; ++cc) {
+        const int off = 4 * (cc ^ (tx & 7));
+        float4 t4[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          t4[i] = *reinterpret_cast<const float4*>(tw + kLanesY * i * kChannels + 4 * cc);
+        }
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 gv = *reinterpret_cast<const float4*>(
+                g_rows + (kQuadStep * q + j) * kChannels + off);
+#pragma unroll
+            for (int i = 0; i < RM; ++i) fma4(acc[i][4 * q + j], t4[i], gv);
+          }
+        }
+      }
+      // grad_x = g * scale + 2 * x * u, written once.
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = wrow + ty + kLanesY * i;
+        const int64_t row = tile * kTileRows + r;
+        if (row >= rows) continue;
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) {
+          const int c = 4 * tx + kQuadStep * q;
+          const float4 xv = *reinterpret_cast<const float4*>(xs + r * kChannels + c);
+          const float4 dv = *reinterpret_cast<const float4*>(gs + r * kChannels + c);
+          float4 y;
+          y.x = dv.x + 2.0f * xv.x * acc[i][4 * q + 0];
+          y.y = dv.y + 2.0f * xv.y * acc[i][4 * q + 1];
+          y.z = dv.z + 2.0f * xv.z * acc[i][4 * q + 2];
+          y.w = dv.w + 2.0f * xv.w * acc[i][4 * q + 3];
+          *reinterpret_cast<float4*>(grad_x + row * row_stride + c) = y;
+        }
+      }
+    }
+
+    if (want_params) {
+      // x^2 of the lane's own elements (those of its t), for grad_gamma.
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) {
+          float4* xv = reinterpret_cast<float4*>(
+              xs + (wrow + ty + kLanesY * i) * kChannels + 4 * tx + kQuadStep * q);
+          const float4 v = *xv;
+          *xv = make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
+        }
+      }
+      __syncthreads();  // every warp's rows of t and x^2 are in place
+      // grad_gamma += (x^2)^T t over the tile's rows, in order of rows.
+#pragma unroll 2
+      for (int r = 0; r < kTileRows; ++r) {
+        const float* sr = xs + r * kChannels + 4 * a;
+        const float* tr = ts + r * kChannels + 4 * tx;
+        float4 s[2], t[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          s[p] = *reinterpret_cast<const float4*>(sr + kQuadStep * p);
+          t[p] = *reinterpret_cast<const float4*>(tr + kQuadStep * p);
+        }
+#pragma unroll
+        for (int pk = 0; pk < 2; ++pk) {
+          const float sk[4] = {s[pk].x, s[pk].y, s[pk].z, s[pk].w};
+#pragma unroll
+          for (int jk = 0; jk < 4; ++jk) {
+#pragma unroll
+            for (int pc = 0; pc < 2; ++pc) {
+              float* out = part[4 * pk + jk] + 4 * pc;
+              out[0] = fmaf(sk[jk], t[pc].x, out[0]);
+              out[1] = fmaf(sk[jk], t[pc].y, out[1]);
+              out[2] = fmaf(sk[jk], t[pc].z, out[2]);
+              out[3] = fmaf(sk[jk], t[pc].w, out[3]);
+            }
+          }
+        }
+      }
+      // grad_beta: this thread sums rows a, a + 16, ... of its channels.
+#pragma unroll
+      for (int r = a; r < kTileRows; r += kLanesY * kWarps) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float4 t = *reinterpret_cast<const float4*>(ts + r * kChannels + 4 * tx +
+                                                           kQuadStep * p);
+          part_beta[4 * p + 0] += t.x;
+          part_beta[4 * p + 1] += t.y;
+          part_beta[4 * p + 2] += t.z;
+          part_beta[4 * p + 3] += t.w;
+        }
+      }
+    }
+    __syncthreads();  // the next tile's loads and t overwrite what was read here
+  }
+  cp_async_wait<0>();
+  if (!want_params) return;
+
+  // The block's partial: grad_gamma's 8 x 8 of each thread as it stands, then
+  // grad_beta, its 16 sums of rows a mod 16 added in order of a.
+#pragma unroll
+  for (int pk = 0; pk < 2; ++pk) {
+#pragma unroll
+    for (int jk = 0; jk < 4; ++jk) {
+      const int k = 4 * a + kQuadStep * pk + jk;
+#pragma unroll
+      for (int pc = 0; pc < 2; ++pc) {
+        const float* v = part[4 * pk + jk] + 4 * pc;
+        *reinterpret_cast<float4*>(partials + k * kChannels + 4 * tx + kQuadStep * pc) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    *reinterpret_cast<float4*>(ts + a * kChannels + 4 * tx + kQuadStep * p) =
+        make_float4(part_beta[4 * p], part_beta[4 * p + 1], part_beta[4 * p + 2],
+                    part_beta[4 * p + 3]);
+  }
+  __syncthreads();
+  if (tid < kChannels) {
+    float sum = 0.0f;
+    for (int r = 0; r < kLanesY * kWarps; ++r) sum += ts[r * kChannels + tid];
+    partials[kChannels * kChannels + tid] = sum;
+  }
+}
+
+// grad_gamma and grad_beta of model blockIdx.y: the sum of its `parts` blocks'
+// partials, in a fixed order (parts p = group mod 16 in order, then the 16
+// groups in order), with no atomics. A block sums 64 floats of the partial.
+__global__ void __launch_bounds__(kThreads)
+gdn_bwd_reduce_kernel(const float* __restrict__ partials, int parts,
+                      float* __restrict__ grad_gamma, float* __restrict__ grad_beta) {
+  constexpr int kGroups = kThreads / 16;
+  __shared__ float4 sums[kGroups][16];
+  const int col = threadIdx.x & 15;
+  const int group = threadIdx.x >> 4;
+  const int e = blockIdx.x * 64 + 4 * col;
+  const float* base = partials + static_cast<int64_t>(blockIdx.y) * parts * kPartialFloats + e;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int p = group; p < parts; p += kGroups) {
+    const float4 v = *reinterpret_cast<const float4*>(base + static_cast<int64_t>(p) *
+                                                                 kPartialFloats);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  sums[group][col] = acc;
+  __syncthreads();
+  if (group != 0) return;
+  for (int g = 1; g < kGroups; ++g) {
+    const float4 v = sums[g][col];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  if (e < kChannels * kChannels) {
+    if (grad_gamma != nullptr) {
+      *reinterpret_cast<float4*>(grad_gamma + static_cast<int64_t>(blockIdx.y) * kChannels *
+                                                  kChannels + e) = acc;
+    }
+  } else if (grad_beta != nullptr) {
+    *reinterpret_cast<float4*>(grad_beta + static_cast<int64_t>(blockIdx.y) * kChannels + e -
+                               kChannels * kChannels) = acc;
+  }
+}
+
 // -------------------------------------------------------------- launch ----
 
-// Launches `kernel` over `num_blocks_wanted` blocks at most for each of
-// `models` models (gridDim.y), capped at the blocks resident on the whole
-// card (the kernels are persistent).
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem_bytes, int* max_grid, int64_t num_blocks_wanted,
-           int models, void* stream, Args... args) {
+// The grid of a persistent launch of `kernel`: gridDim.y the `models`
+// models, gridDim.x the blocks of each, one for each of `num_blocks_wanted`
+// and at most the blocks resident on the whole card shared among the
+// models. The first call sets the kernel's shared memory and reads the
+// card into `max_grid` (the kernel's own static).
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int smem_bytes, int* max_grid,
+                            int64_t num_blocks_wanted, int models, dim3* grid) {
   if (*max_grid == 0) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     int device = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                         smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     *max_grid = sms * std::max(per_sm, 1);
   }
-  if (num_blocks_wanted <= 0 || models <= 0) return 0;
-  if (models > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(
-                      std::min<int64_t>(num_blocks_wanted, std::max(*max_grid / models, 1))),
-                  static_cast<unsigned>(models));
+  if (models > 65535) return cudaErrorInvalidValue;
+  const int64_t per_model = std::max(*max_grid / std::max(models, 1), 1);
+  *grid = dim3(static_cast<unsigned>(std::clamp<int64_t>(num_blocks_wanted, 0, per_model)),
+               static_cast<unsigned>(std::max(models, 0)));
+  return cudaSuccess;
+}
+
+// Launches `kernel` on the grid persistent_grid gives; nothing for no
+// blocks or no models.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int smem_bytes, int* max_grid, int64_t num_blocks_wanted,
+           int models, void* stream, Args... args) {
+  dim3 grid;
+  const cudaError_t err =
+      persistent_grid(kernel, smem_bytes, max_grid, num_blocks_wanted, models, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid.x == 0 || grid.y == 0) return 0;
   kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -540,6 +964,54 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, void* out, i
                 (rows + kBlockRows - 1) / kBlockRows, 1, stream,
                 static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
                 static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(out), rows);
+}
+
+// The backward's tile pass, one persistent block at least (so that grad_gamma
+// and grad_beta of no rows come out zero), then, when grad_gamma or grad_beta
+// is asked for, the reduction of the partials (`blocks` a model, the size
+// the caller gave them, which must be the tile pass's grid). Without `run`
+// it launches nothing and puts the tile pass's blocks a model into `blocks`.
+template <int kTileRows, bool kInverse>
+int launch_bwd(bool run, const void* x, const void* grad_out, const void* gamma,
+               const void* beta, void* grad_x, void* partials, void* grad_gamma,
+               void* grad_beta, int64_t rows, int models, int* blocks, void* stream) {
+  static int max_grid = 0;  // resident blocks on the whole card
+  constexpr int RM = kTileRows / kWarps / kLanesY;
+  const auto kernel = gdn_bwd_f32_kernel<RM, kInverse>;
+  const int64_t tiles = std::max<int64_t>((rows + kTileRows - 1) / kTileRows, 1);
+  dim3 grid;
+  cudaError_t err = persistent_grid(kernel, bwd_smem_bytes(kTileRows), &max_grid, tiles,
+                                    models, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!run) {
+    *blocks = static_cast<int>(grid.x);
+    return 0;
+  }
+  const int want_params = partials != nullptr;
+  if (want_params && static_cast<int>(grid.x) != *blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);  // partials sized for another grid
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, kThreads, bwd_smem_bytes(kTileRows), s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(grad_out),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<float*>(grad_x), static_cast<float*>(partials), rows, grad_x != nullptr,
+      want_params);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !want_params) return static_cast<int>(err);
+  gdn_bwd_reduce_kernel<<<dim3(kPartialFloats / 64, models), kThreads, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<int>(grid.x),
+      static_cast<float*>(grad_gamma), static_cast<float*>(grad_beta));
+  return static_cast<int>(cudaGetLastError());
+}
+
+using BwdLauncher = decltype(&launch_bwd<64, false>);
+
+// The launcher of a tile height and GDN or IGDN; null for another height.
+BwdLauncher bwd_launcher(int tile_rows, int inverse) {
+  if (tile_rows == 64) return inverse ? launch_bwd<64, true> : launch_bwd<64, false>;
+  if (tile_rows == 32) return inverse ? launch_bwd<32, true> : launch_bwd<32, false>;
+  return nullptr;
 }
 
 // ---------------------------------------------------------------- marks ----
@@ -643,6 +1115,38 @@ int aeic_gdn_quantize_f32(const void* x, const void* gamma, const void* beta,
                                                 tile_rows, stream)
                  : launch_f32_tiled<false, true>(x, gamma, beta, bin_widths, out, rows,
                                                  tile_rows, stream);
+}
+
+// The gradient of aeic_gdn_f32_stacked (one model: models = 1): x and
+// grad_out (rows, models, 128); grad_x of their shape or null; partials
+// (models, blocks, 128 * 128 + 128) fp32 scratch, or null when neither
+// grad_gamma (models, 128, 128) nor grad_beta (models, 128) is asked for
+// (either may be null). `blocks` is what aeic_gdn_backward_blocks gives for
+// the same rows, models, inverse and `tile_rows` (64 or 32).
+int aeic_gdn_backward_f32(const void* x, const void* grad_out, const void* gamma,
+                          const void* beta, void* grad_x, void* partials, void* grad_gamma,
+                          void* grad_beta, int64_t rows, int models, int blocks, int inverse,
+                          int tile_rows, void* stream) {
+  const BwdLauncher launcher = bwd_launcher(tile_rows, inverse);
+  if (launcher == nullptr || models <= 0 || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launcher(true, x, grad_out, gamma, beta, grad_x, partials, grad_gamma, grad_beta, rows,
+                  models, &blocks, stream);
+}
+
+// The blocks a model of aeic_gdn_backward_f32's tile pass (its grid, sized
+// from the card's occupancy), the partials' second axis; minus a cudaError_t
+// when the arguments or the card's query fail.
+int aeic_gdn_backward_blocks(int64_t rows, int models, int inverse, int tile_rows) {
+  const BwdLauncher launcher = bwd_launcher(tile_rows, inverse);
+  if (launcher == nullptr || models <= 0 || rows < 0) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  int blocks = 0;
+  const int err = launcher(false, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, rows, models, &blocks, nullptr);
+  return err != 0 ? -err : blocks;
 }
 
 // The phase marks: aeic_mark_count() kernels, mark `which` named

@@ -24,18 +24,24 @@ the output of a convolution grouped over the models, with per-model
 gamma and beta; one launch serves every model (the counterpart of the
 JAX ladder's ``vmap`` of ``gdn_pallas_2d``).
 
-The fp32 kernel is differentiable: :class:`GdnFunction` runs it as the
-forward and computes the gradient in plain PyTorch (the reference has no
-backward kernel either: its training differentiates the plain einsum).
-:func:`gdn_2d` goes through it whenever an operand requires grad. What
-is never differentiated in the reference raises here: a bf16 input or
-the fused quantiser with an operand that requires grad. No call returns
-a detached result quietly.
+The fp32 kernel is differentiable: :class:`GdnFunction` and
+:class:`GdnStackedFunction` run it as the forward and the gradient kernel
+of ``csrc/gdn.cu`` as the backward (:func:`gdn_backward`; one model is a
+stack of one), whose plain twin :func:`gdn_backward_plain` holds the
+formulas once. The reference has no backward kernel: its training
+differentiates the plain einsum, so this one replaces none.
+:func:`gdn_2d` goes through :class:`GdnFunction` whenever an operand
+requires grad. What is never differentiated in the reference raises
+here: a bf16 input or the fused quantiser with an operand that requires
+grad. No call returns a detached result quietly.
 
-``LAUNCHES`` counts the forward kernel launches per variant, so a run
-can show that its path went through the kernels; ``LAUNCH_ROWS`` counts
-them per variant and row count, so that it can check the kernels at the
-row counts its path gave them.
+``LAUNCHES`` counts the kernel launches per variant where they are
+launched: the forward's, the backward's tile pass (``*_backward``) and
+the reduction that follows it when grad_gamma or grad_beta is asked for
+(``gdn_backward_reduce``, GDN and IGDN alike), so a run can show that its
+path went through the kernels; ``LAUNCH_ROWS`` counts them per variant
+and row count, so that it can check the kernels at the row counts its
+path gave them.
 
 The library also holds the phase marks of a graphed training step
 (:func:`launch_mark`, placed by ``utils/tracing.py``): one-thread
@@ -76,12 +82,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Tile heights of the fp32 kernels, tallest first, and the SMs of an H100.
 TILE_ROWS = (128, 64, 32)
 H100_SMS = 132
+# Tile heights of the gradient kernel (its shared memory holds 64 KB of
+# gamma and five tiles of 128 floats a row), and the floats of one block's
+# partial grad_gamma and grad_beta (the tile pass's grid, which the
+# library sizes, says how many blocks a model write one).
+BACKWARD_TILE_ROWS = (64, 32)
+PARTIAL_FLOATS = CHANNELS * CHANNELS + CHANNELS
 
 LAUNCHES = {"gdn_f32": 0, "igdn_f32": 0, "gdn_bf16": 0, "igdn_bf16": 0,
             "gdn_quantize_f32": 0, "igdn_quantize_f32": 0,
-            "gdn_f32_stacked": 0, "igdn_f32_stacked": 0}
+            "gdn_f32_stacked": 0, "igdn_f32_stacked": 0,
+            "gdn_f32_backward": 0, "igdn_f32_backward": 0,
+            "gdn_f32_stacked_backward": 0, "igdn_f32_stacked_backward": 0,
+            "gdn_backward_reduce": 0}
 # (variant, rows) -> launches; a stacked variant's rows are (rows a model,
-# models).
+# models), and so are the reduction's, which always takes the model axis.
 LAUNCH_ROWS = collections.Counter()
 _lib = None
 _sm_counts = {}
@@ -146,8 +161,12 @@ def load_library():
     lib.aeic_gdn_bf16.argtypes = pointers + rows_inverse + stream
     lib.aeic_gdn_quantize_f32.argtypes = (
         [ctypes.c_void_p] + pointers + rows_inverse + tile + stream)
+    lib.aeic_gdn_backward_f32.argtypes = (
+        pointers + pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + tile + stream)
+    lib.aeic_gdn_backward_blocks.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int] + tile
     for name in ("aeic_gdn_f32", "aeic_gdn_f32_stacked", "aeic_gdn_bf16",
-                 "aeic_gdn_quantize_f32"):
+                 "aeic_gdn_quantize_f32", "aeic_gdn_backward_f32", "aeic_gdn_backward_blocks"):
         getattr(lib, name).restype = ctypes.c_int
     lib.aeic_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aeic_cuda_error_string.restype = ctypes.c_char_p
@@ -179,6 +198,40 @@ def gdn_stacked_2d_plain(x, gamma, beta, inverse=False):
     return x * (torch.sqrt(pool) if inverse else torch.rsqrt(pool))
 
 
+def gdn_backward_plain(x, gamma, beta, grad_out, inverse, needs=(True, True, True)):
+    """What :func:`gdn_backward` computes, in plain PyTorch: the gradient
+    of :func:`gdn_stacked_2d_plain` (one model is a stack of one). With
+    ``pool = x^2 @ gamma + beta`` (``gamma[k][c]``, symmetric or not), ``g``
+    the incoming gradient ``grad_out`` and ``t = dL/dpool`` (GDN:
+    ``-0.5 * g * x * pool^-1.5``; IGDN: ``0.5 * g * x * pool^-0.5``),
+
+        grad_x     = g * scale + 2 * x * (t @ gamma.T)
+        grad_gamma = (x^2).T @ t
+        grad_beta  = t.sum(0)
+
+    where ``scale`` is ``pool^-0.5`` (GDN) or ``pool^0.5`` (IGDN), each
+    model's with its own parameters. Returns ``(grad_x, grad_gamma,
+    grad_beta)``, ``None`` where ``needs`` is False."""
+    squares = torch.square(x).transpose(0, 1)  # (M, rows, C)
+    pool = torch.matmul(squares, gamma).transpose(0, 1) + beta
+    if inverse:
+        scale = torch.sqrt(pool)
+        grad_pool = 0.5 * grad_out * x / scale
+    else:
+        scale = torch.rsqrt(pool)
+        grad_pool = -0.5 * grad_out * x * scale / pool
+    by_model = grad_pool.transpose(0, 1)  # (M, rows, C)
+    (grad_x, grad_gamma, grad_beta) = (None, None, None)
+    if needs[0]:
+        grad_x = grad_out * scale + 2.0 * x * torch.matmul(
+            by_model, gamma.transpose(-1, -2)).transpose(0, 1)
+    if needs[1]:
+        grad_gamma = torch.matmul(squares.transpose(-1, -2), by_model)
+    if needs[2]:
+        grad_beta = grad_pool.sum(0)
+    return (grad_x, grad_gamma, grad_beta)
+
+
 def gdn_quantize_2d_plain(x, gamma, beta, bin_widths, inverse=False):
     """What :func:`gdn_quantize_2d` computes: fp32 GDN/IGDN, then
     ``bw * round(y / bw)`` per channel (uncentred, dequantised)."""
@@ -196,8 +249,9 @@ def _check_operands(x, gamma, beta, dtypes):
         raise ValueError("expected gamma (128, 128) and beta (128,).")
 
 
-def tile_rows(rows, sms=H100_SMS):
-    """Tile height of the fp32 kernels for a row count.
+def tile_rows(rows, sms=H100_SMS, heights=TILE_ROWS):
+    """Tile height of the fp32 kernels for a row count, of ``heights``
+    (tallest first; the gradient kernel's are :data:`BACKWARD_TILE_ROWS`).
 
     The blocks are persistent, about one to an SM, so the busiest SM
     works through ``ceil(tiles / sms)`` tiles. Take the height that
@@ -208,7 +262,7 @@ def tile_rows(rows, sms=H100_SMS):
         tiles = -(-rows // height)
         return -(-tiles // sms) * height
 
-    return min(TILE_ROWS, key=busiest)  # TILE_ROWS is tallest first
+    return min(heights, key=busiest)
 
 
 def _sm_count(device):
@@ -264,23 +318,92 @@ def _gdn_2d_forward(x, gamma, beta, inverse):
     return out
 
 
+def gdn_backward(x, gamma, beta, grad_out, inverse, needs=(True, True, True), stacked=True):
+    """The gradient of :func:`gdn_stacked_2d` (one model: a stack of one):
+    ``x`` and ``grad_out`` ``(rows, M, C)``, gamma ``(M, C, C)``, beta
+    ``(M, C)``; returns ``(grad_x, grad_gamma, grad_beta)``, ``None`` where
+    ``needs`` is False. ``grad_out`` must have ``x``'s shape and be
+    C-contiguous, on every device. A CPU tensor takes
+    :func:`gdn_backward_plain`; a CUDA one the gradient kernel, a tile pass
+    and, for grad_gamma or grad_beta, a reduction of its blocks' partials in
+    a fixed order, on the current stream, or raises. The tile pass counts
+    as ``[i]gdn_f32_stacked_backward`` at ``(rows, M)``, or with ``stacked``
+    False (the backward of :class:`GdnFunction`, M = 1) as
+    ``[i]gdn_f32_backward`` at ``rows``; the reduction as
+    ``gdn_backward_reduce`` at ``(rows, M)``."""
+    if tuple(grad_out.shape) != tuple(x.shape):
+        raise ValueError(f"grad_out of shape {tuple(grad_out.shape)}, x of "
+                         f"{tuple(x.shape)}.")
+    if not grad_out.is_contiguous():
+        raise ValueError("grad_out must be C-contiguous (rows, models, 128).")
+    if not stacked and x.shape[1] != 1:
+        raise ValueError(f"a single model's backward got {x.shape[1]} models.")
+    if x.device.type == "cpu":
+        return gdn_backward_plain(x, gamma, beta, grad_out, inverse, needs)
+    _check_stacked_operands(x, gamma, beta)
+    if grad_out.dtype != torch.float32 or grad_out.device != x.device:
+        raise TypeError(f"grad_out must be fp32 on {x.device}, got {grad_out.dtype} on "
+                        f"{grad_out.device}.")
+    (gamma, beta, grad_out) = _cuda_operands(x, gamma, beta, grad_out)
+    (rows, models) = (x.shape[0], x.shape[1])
+    tile = tile_rows(rows, max(1, _sm_count(x.device) // models), BACKWARD_TILE_ROWS)
+    lib = load_library()
+    blocks = lib.aeic_gdn_backward_blocks(rows, models, int(inverse), tile)
+    if blocks < 0:
+        _raise_on_status(lib, -blocks, "gdn_backward")
+    grad_x = torch.empty_like(x) if needs[0] else None
+    grad_gamma = torch.empty_like(gamma) if needs[1] else None
+    grad_beta = torch.empty_like(beta) if needs[2] else None
+    reduce = needs[1] or needs[2]
+    partials = (torch.empty((models, blocks, PARTIAL_FLOATS), dtype=torch.float32,
+                            device=x.device) if reduce else None)
+    pointer = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    status = lib.aeic_gdn_backward_f32(
+        x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pointer(grad_x),
+        pointer(partials), pointer(grad_gamma), pointer(grad_beta), rows, models, blocks,
+        int(inverse), tile, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_status(lib, status, "gdn_backward")
+    forward = "igdn_f32" if inverse else "gdn_f32"
+    if stacked:
+        _count(forward + "_stacked_backward", (rows, models))
+    else:
+        _count(forward + "_backward", rows)
+    if reduce:
+        _count("gdn_backward_reduce", (rows, models))
+    return (grad_x, grad_gamma, grad_beta)
+
+
+def _backward(ctx, grad_out, stacked):
+    """The backward of both functions: :func:`gdn_backward` between the
+    marks ``gdn_backward_begin`` and ``gdn_backward_end``
+    (``utils/tracing.py``); a single model goes in as a stack of one."""
+    mark("gdn_backward_begin")
+    (x, gamma, beta) = ctx.saved_tensors
+    grad_out = grad_out.contiguous()
+    if not stacked:
+        (x, gamma, beta, grad_out) = (x.unsqueeze(1), gamma.unsqueeze(0), beta.unsqueeze(0),
+                                      grad_out.unsqueeze(1))
+    grads = gdn_backward(x, gamma, beta, grad_out, ctx.inverse, ctx.needs_input_grad[:3],
+                         stacked)
+    if not stacked:
+        (grad_x, grad_gamma, grad_beta) = grads
+        grads = (None if grad_x is None else grad_x[:, 0],
+                 None if grad_gamma is None else grad_gamma[0],
+                 None if grad_beta is None else grad_beta[0])
+    mark("gdn_backward_end")
+    return (*grads, None)
+
+
 class GdnFunction(torch.autograd.Function):
     """Differentiable GDN/IGDN on a ``(rows, C)`` matrix.
 
     Forward: the kernel on the card, the plain version on the CPU.
-    Backward, in plain PyTorch: with ``pool = x^2 @ gamma + beta``
-    (``gamma[k][c]``, symmetric or not), ``g`` the incoming gradient and
-    ``t = dL/dpool``
-    (GDN: ``-0.5 * g * x * pool^-1.5``; IGDN: ``0.5 * g * x * pool^-0.5``),
-
-        grad_x     = g * scale + 2 * x * (t @ gamma.T)
-        grad_gamma = (x^2).T @ t
-        grad_beta  = t.sum(0)
-
-    where ``scale`` is ``pool^-0.5`` (GDN) or ``pool^0.5`` (IGDN). The
-    pool is computed again in the backward, so the forward saves only
-    its inputs. The backward opens with the mark ``gdn_backward_begin``
-    and closes with ``gdn_backward_end`` (``utils/tracing.py``).
+    Backward: :func:`gdn_backward` on the model as a stack of one, the
+    gradient kernel on the card and :func:`gdn_backward_plain` (whose
+    docstring holds the formulas) on the CPU. The pool is computed again
+    in the backward, so the forward saves only its inputs. The backward
+    opens with the mark ``gdn_backward_begin`` and closes with
+    ``gdn_backward_end`` (``utils/tracing.py``).
     """
 
     @staticmethod
@@ -291,24 +414,7 @@ class GdnFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        mark("gdn_backward_begin")
-        (x, gamma, beta) = ctx.saved_tensors
-        pool = torch.matmul(torch.square(x), gamma) + beta
-        if ctx.inverse:
-            scale = torch.sqrt(pool)
-            grad_pool = 0.5 * grad_out * x / scale
-        else:
-            scale = torch.rsqrt(pool)
-            grad_pool = -0.5 * grad_out * x * scale / pool
-        (grad_x, grad_gamma, grad_beta) = (None, None, None)
-        if ctx.needs_input_grad[0]:
-            grad_x = grad_out * scale + 2.0 * x * torch.matmul(grad_pool, gamma.t())
-        if ctx.needs_input_grad[1]:
-            grad_gamma = torch.matmul(torch.square(x).t(), grad_pool)
-        if ctx.needs_input_grad[2]:
-            grad_beta = grad_pool.sum(0)
-        mark("gdn_backward_end")
-        return (grad_x, grad_gamma, grad_beta, None)
+        return _backward(ctx, grad_out, stacked=False)
 
 
 def _check_stacked_operands(x, gamma, beta):
@@ -347,9 +453,8 @@ class GdnStackedFunction(torch.autograd.Function):
     """Differentiable GDN/IGDN with a model axis, ``(rows, M, C)``.
 
     Forward: the stacked kernel on the card, the plain version on the
-    CPU. Backward in plain PyTorch: :class:`GdnFunction`'s formulas for
-    each model, as batched matmuls over the model axis, between the same
-    two marks.
+    CPU. Backward: :func:`gdn_backward`, as :class:`GdnFunction`'s,
+    between the same two marks.
     """
 
     @staticmethod
@@ -360,27 +465,7 @@ class GdnStackedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        mark("gdn_backward_begin")
-        (x, gamma, beta) = ctx.saved_tensors
-        squares = torch.square(x).transpose(0, 1)  # (M, rows, C)
-        pool = torch.matmul(squares, gamma).transpose(0, 1) + beta
-        if ctx.inverse:
-            scale = torch.sqrt(pool)
-            grad_pool = 0.5 * grad_out * x / scale
-        else:
-            scale = torch.rsqrt(pool)
-            grad_pool = -0.5 * grad_out * x * scale / pool
-        by_model = grad_pool.transpose(0, 1)  # (M, rows, C)
-        (grad_x, grad_gamma, grad_beta) = (None, None, None)
-        if ctx.needs_input_grad[0]:
-            grad_x = grad_out * scale + 2.0 * x * torch.matmul(
-                by_model, gamma.transpose(-1, -2)).transpose(0, 1)
-        if ctx.needs_input_grad[1]:
-            grad_gamma = torch.matmul(squares.transpose(-1, -2), by_model)
-        if ctx.needs_input_grad[2]:
-            grad_beta = grad_pool.sum(0)
-        mark("gdn_backward_end")
-        return (grad_x, grad_gamma, grad_beta, None)
+        return _backward(ctx, grad_out, stacked=True)
 
 
 def _needs_grad(*tensors):

@@ -22,8 +22,13 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    its models) at 7 x 40,960, 7 x 10,240 and 7 x 2,560 rows, a sharded
    ladder's block of one model (1 x 2,560) and a ragged 7 x 40,997, each
    model of it equal to the single-model kernel on the same rows bit for
-   bit; then the gradient of the fp32 kernel's ``GdnFunction`` against
-   autograd through the plain version;
+   bit; then the gradient of the fp32 kernel's ``GdnFunction`` (the
+   kernel forward, the gradient kernel backward) against autograd through
+   the plain version, and the gradient kernel (``gdn_backward``) against
+   its plain twin at every training site's rows, one model and the
+   seven-model ladder, each gradient within 1e-4 of its largest entry,
+   two calls equal bit for bit, timed replayed and eager beside the twin
+   and three times the forward's bound;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
    and its statistics at multiplier 1, true bitstreams, verified;
@@ -194,15 +199,25 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    (131,072, 32,768 and 8,192) with a gamma that is not symmetric, against
    their plain versions (the transposed gamma must miss that tolerance
    100 times over) and timed, ``GdnFunction``'s gradients against
-   autograd through the plain version; then a graphed epoch of 3 batches
-   from a fresh state: its capture launches 3 ``gdn_f32`` + 3 ``igdn_f32``
-   a step at those rows and marks ``step, forward, entropy, synthesis,
+   autograd through the plain version and the gradient kernel against its
+   twin, timed; then a graphed epoch of 3 batches from a fresh state: its
+   capture launches 3 ``gdn_f32`` + 3 ``igdn_f32`` a step at those rows and
+   as many ``*_backward``, and marks ``step, forward, entropy, synthesis,
    backward, optimizer, step_end``, a replay counts none, and one eager
-   ``train_step`` launches 3 + 3;
+   ``train_step`` launches 3 + 3 and 3 + 3 backwards;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 10. the result line ``{"ok": true, "device": {...}}``, last.
 
 Launch counts are set to 0 just before each path and read just after.
+Every GDN site differentiated on a path counts a ``*_backward`` launch
+of the gradient kernel's tile pass and, as gamma and beta require grad
+there, a ``gdn_backward_reduce`` launch of its reduction, so a training
+step's counts show no backward in plain PyTorch. The kernels line's
+``*_backward`` entries carry ``max_abs_err`` as every entry does (the
+largest of the three gradients'), beside it ``max_gap_to_largest``, and
+the reduction's launches and the two kernels' times apart where the
+profiler's trace held every launch (``reduce_ms``, ``tile_pass_ms``;
+null where it did not).
 A wrapper counts where Python calls it, so a CUDA graph counts at its
 warm-up batch and its capture and not at a replay: the expectations say
 which numbers are per capture (a graphed training epoch: its warm-up
@@ -325,6 +340,8 @@ HYPERPRIOR_SHAPES = ("R/2", "R/4", "R/8")
 # The kernels line's shapes of a training path and of an RD study.
 STACKED_ENTRIES = {"gdn_f32_stacked": TRAIN_SHAPES, "igdn_f32_stacked": TRAIN_SHAPES}
 TRAINING_ENTRIES = {"gdn_f32": TRAIN_SHAPES, "igdn_f32": TRAIN_SHAPES, **STACKED_ENTRIES}
+# A training path differentiates every site: the gradient kernel's entries.
+TRAINING_ENTRIES.update({name + "_backward": shapes for (name, shapes) in TRAINING_ENTRIES.items()})
 STUDY_ENTRIES = {"gdn_f32": SERVE_SHAPES, "igdn_f32": SERVE_SHAPES}
 # The distributed layer: sharded steps held against unsharded ones, the
 # height-sharded round trip's gate, and the two image sets of the gate's
@@ -372,6 +389,26 @@ STACKED_MODELS = 7
 # Its timed shapes: a ladder step's rows for the seven models, and a
 # sharded ladder's block of one model.
 STACKED_SHAPES = TRAIN_SHAPES + ("T/16 x1",)
+# The gradient kernel (``gdn_backward``, the backward of ``GdnFunction`` and
+# ``GdnStackedFunction``; its tile pass counted once a call as
+# ``<forward>_backward``, its reduction as ``REDUCE``): the forward variant
+# each differentiates. It replaces no TPU kernel.
+BACKWARD_VARIANTS = {name + "_backward": name
+                     for name in ("gdn_f32", "igdn_f32", "gdn_f32_stacked", "igdn_f32_stacked")}
+REDUCE = "gdn_backward_reduce"
+# The gradient kernel's two kernels, as a device trace names them, and the
+# calls a trace of them holds.
+(BACKWARD_KERNELS, TRACED_CALLS) = (("gdn_bwd_f32_kernel", "gdn_bwd_reduce_kernel"), 10)
+
+
+def backward_of(counts):
+    """The backward launches of forward launches that all require grad:
+    a tile pass each and, as gamma and beta require grad too, a reduction
+    each."""
+    launches = {name + "_backward": n for (name, n) in counts.items()}
+    return {**launches, REDUCE: sum(launches.values())}
+
+
 # Kernel variants: dtype, inverse, quantise, trained (gamma, beta) site,
 # the shapes of the main path, and the Pallas body each replaces.
 VARIANTS = {
@@ -411,7 +448,8 @@ def build_all():
     with open(gdn_kernel.BUILD_LOG) as log:
         report = log.read()
     for entry in report.split("Compiling entry function '")[1:]:
-        kernel = re.search(r"gdn_(?:f32|bf16)_kernelI\w+?E(?=Ev)", entry)
+        kernel = re.search(r"gdn_(?:bwd_)?(?:f32|bf16)_kernelI\w+?E(?=Ev)|gdn_bwd_reduce_kernel",
+                           entry)
         facts = [line.split(":")[-1].strip() for line in entry.splitlines()
                  if "Used" in line or "spill" in line]
         print(f"  ptxas {kernel.group(0) if kernel else '?'}: " + "; ".join(facts))
@@ -1117,12 +1155,124 @@ def _gap_to_max(got, expected):
     return float((got - expected).abs().max() / expected.abs().max().clamp_min(1e-30))
 
 
-def phase_gradient():
-    """``GdnFunction`` (kernel forward, gradient written out) against
-    autograd through the plain version, same inputs on the card, at the
-    H/4 rows of a training batch. Tolerance: each gradient within 1e-4
-    of its largest entry (fp32 sums over 128 channels, or over 40,960
-    rows for gamma and beta, in another order)."""
+def backward_inputs(name, rows, models, seed):
+    """``(x, gamma, beta, grad_out)`` of the gradient kernel, in its
+    stacked layout (one model a stack of one): the forward variant's
+    inputs (:func:`kernel_inputs`, :func:`stacked_inputs`) and a seeded
+    ``grad_out``."""
+    forward = BACKWARD_VARIANTS[name]
+    if forward in STACKED_VARIANTS:
+        (x, gamma, beta) = stacked_inputs(forward, rows, models, seed)
+    else:
+        (x, gamma, beta) = kernel_inputs(forward, rows, seed)
+        (x, gamma, beta) = (x.unsqueeze(1), gamma.unsqueeze(0), beta.unsqueeze(0))
+    grad_out = torch.randn(x.shape, device=DEVICE,
+                           generator=torch.Generator(DEVICE).manual_seed(seed))
+    return (x, gamma, beta, grad_out)
+
+
+def check_backward(name, x, gamma, beta, grad_out):
+    """The gradient kernel against its plain twin, each gradient within
+    1e-4 of its largest entry (fp32 sums over 128 channels, or over the
+    rows for gamma and beta, in another order), and a second call equal
+    to the first bit for bit. Returns the three gaps and the largest
+    absolute difference of the three gradients."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    (inverse, stacked) = (name.startswith("igdn"), "stacked" in name)
+    got = gk.gdn_backward(x, gamma, beta, grad_out, inverse, stacked=stacked)
+    again = gk.gdn_backward(x, gamma, beta, grad_out, inverse, stacked=stacked)
+    expected = gk.gdn_backward_plain(x, gamma, beta, grad_out, inverse)
+    torch.cuda.synchronize()
+    gaps = [_gap_to_max(a, b) for (a, b) in zip(got, expected)]
+    if not all(bool(torch.isfinite(g).all()) for g in got) or not all(g <= 1e-4 for g in gaps):
+        raise AssertionError(f"{name} at {tuple(x.shape[:2])} rows: gradient gaps {gaps}")
+    if not all(torch.equal(a, b) for (a, b) in zip(got, again)):
+        raise AssertionError(f"{name} at {tuple(x.shape[:2])} rows: two calls differ")
+    return (gaps, max(float((a - b).abs().max()) for (a, b) in zip(got, expected)))
+
+
+def kernel_launch_ms(run, steps, names):
+    """Device time of each kernel of ``names`` in a profiler trace of
+    ``steps`` calls of ``run``, from the trace's own kernel intervals:
+    ``{name: (ms a launch, launches in the trace)}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # the profiler's own start-up stays out of the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    found = collections.defaultdict(list)
+    for event in trace.events():
+        if event.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in event.name:
+                    found[name].append(event.time_range.elapsed_us())
+    return {name: (1e-3 * sum(us) / len(us), len(us)) for (name, us) in found.items()}
+
+
+def time_backward(name, x, gamma, beta, grad_out):
+    """The gradient kernel's and its plain twin's times as :func:`time_ms`
+    gives them, and the bound: three times :func:`bound`'s, the three
+    contractions of the forward's one. Then the tile pass and the
+    reduction apart, ms a launch from a profiler trace of eager calls: the
+    split only where the trace holds every launch of the calls, and then
+    its sum within 70-110 % of the replayed time (the device's own time a
+    call; the eager time adds the host's launches at small sites), or it
+    raises."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    (inverse, stacked) = (name.startswith("igdn"), "stacked" in name)
+    nbytes = 3 * x.numel() * x.element_size()
+    pairs = [(x, grad_out)] + [(x.clone(), grad_out.clone())
+                               for _ in range(TIMING_FOOTPRINT_BYTES // nbytes)]
+    call = lambda p: gk.gdn_backward(p[0], gamma, beta, p[1], inverse, stacked=stacked)  # noqa: E731
+    (ms, ms_eager) = time_ms(call, pairs)
+    (plain_ms, _) = time_ms(
+        lambda p: gk.gdn_backward_plain(p[0], gamma, beta, p[1], inverse), pairs)
+    (bound_ms, bound_by) = bound(x.shape[0], torch.float32, False, x.shape[1])
+    traced = kernel_launch_ms(lambda: call((x, grad_out)), TRACED_CALLS, BACKWARD_KERNELS)
+    launches = {kernel: traced.get(kernel, (None, 0))[1] for kernel in BACKWARD_KERNELS}
+    split = None
+    if all(n == TRACED_CALLS for n in launches.values()):
+        split = {kernel: traced[kernel][0] for kernel in BACKWARD_KERNELS}
+        if not 0.7 <= sum(split.values()) / ms <= 1.1:
+            raise AssertionError(f"{name} at {tuple(x.shape[:2])} rows: the traced split "
+                                 f"{split} sums to {sum(split.values()):.4f} ms, the replayed "
+                                 f"call takes {ms:.4f} ms")
+    return dict(ms=ms, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=3 * bound_ms,
+                bound_by=bound_by, split=split, traced_launches=launches)
+
+
+def backward_line(name, rows, models, gaps, result):
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+
+    tile = gk.tile_rows(rows, max(1, gk.H100_SMS // models), gk.BACKWARD_TILE_ROWS)
+    if result["split"] is None:
+        traced = (f"split not measured: the trace holds {result['traced_launches']} launches "
+                  f"of {TRACED_CALLS} calls")
+    else:
+        traced = ", ".join(f"{kernel} {ms:.4f} ms" for (kernel, ms) in result["split"].items())
+        traced += f", their sum {100 * sum(result['split'].values()) / result['ms']:.0f} % of replayed"
+    return (f"  {name:25s} rows {models} x {rows:6d}: gap / largest entry grad_x {gaps[0]:.3e}, "
+            f"grad_gamma {gaps[1]:.3e}, grad_beta {gaps[2]:.3e} [1e-4], two calls equal; tile "
+            f"{tile}; kernel {result['ms']:.4f} ms replayed, {result['ms_eager']:.4f} ms eager, "
+            f"plain {result['plain_ms']:.4f} ms, bound {1e3 * result['bound_ms']:.2f} us "
+            f"({result['bound_by']}), share of bound "
+            f"{100 * result['bound_ms'] / result['ms']:.0f} % (traced, ms a launch: {traced})")
+
+
+def phase_gradient(kernel_results):
+    """``GdnFunction`` (kernel forward, the gradient kernel backward)
+    against autograd through the plain version, same inputs on the card,
+    at the H/4 rows of a training batch; each gradient within 1e-4 of its
+    largest entry. Then the gradient kernel against its plain twin at
+    every training site's rows, one model and the seven-model ladder (and
+    a sharded ladder's block of one), timed into ``kernel_results``
+    beside the twin and the bound, with its launches a call."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
 
     rows = ROWS["T/4"]
@@ -1140,20 +1290,18 @@ def phase_gradient():
                 raise AssertionError(f"{name}: the {label} result came back detached")
             grads[label] = torch.autograd.grad(out, leaves, upstream)
         torch.cuda.synchronize()
-        if gk.LAUNCHES[name] != 1:
-            raise AssertionError(f"{name}: {gk.LAUNCHES[name]} launches in the gradient check")
+        launches = {variant: n for (variant, n) in gk.LAUNCHES.items() if n}
+        if launches != {name: 1, **backward_of({name: 1})}:
+            raise AssertionError(f"{name}: launches {launches} in the gradient check")
         gaps = [_gap_to_max(got, expected)
                 for (got, expected) in zip(grads["kernel"], grads["plain"])]
-        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
-        out = gk.gdn_2d(*leaves, inverse=inverse)
-        backward_ms = _median_ms(
-            lambda: torch.autograd.grad(out, leaves, upstream, retain_graph=True), 1, 7)
-        print(f"  {name} gradient at {rows} rows, kernel forward vs autograd through plain: "
-              f"gap / largest entry grad_x {gaps[0]:.3e}, grad_gamma {gaps[1]:.3e}, "
-              f"grad_beta {gaps[2]:.3e} [1e-4]; backward (plain PyTorch) {backward_ms:.4f} ms")
+        print(f"  {name} gradient at {rows} rows, kernel forward and backward vs autograd "
+              f"through plain: gap / largest entry grad_x {gaps[0]:.3e}, grad_gamma "
+              f"{gaps[1]:.3e}, grad_beta {gaps[2]:.3e} [1e-4]; launches {launches}")
         if not all(gap <= 1e-4 for gap in gaps):
             raise AssertionError(f"{name}: gradient gaps {gaps}")
         # What is never differentiated raises instead of detaching.
+        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
         for (call, error) in (
                 (lambda: gk.gdn_2d(leaves[0].to(torch.bfloat16), gamma, beta), TypeError),
                 (lambda: gk.gdn_quantize_2d(leaves[0], gamma, beta, beta), RuntimeError)):
@@ -1162,6 +1310,22 @@ def phase_gradient():
             except error:
                 continue
             raise AssertionError(f"{name}: an undifferentiable call with grad did not raise")
+
+    for (seed, name) in enumerate(BACKWARD_VARIANTS):
+        stacked = BACKWARD_VARIANTS[name] in STACKED_VARIANTS
+        for shape in ("ragged",) + (STACKED_SHAPES if stacked else TRAIN_SHAPES):
+            rows = ROWS["T/8"] + RAGGED_EXTRA if shape == "ragged" else ROWS[shape.split()[0]]
+            models = STACKED_MODELS if stacked and not shape.endswith("x1") else 1
+            (x, gamma, beta, grad_out) = backward_inputs(name, rows, models, 90 + seed)
+            (gaps, max_abs) = check_backward(name, x, gamma, beta, grad_out)
+            if shape == "ragged":
+                print(f"  {name:25s} rows {models} x {rows:6d} (ragged): gap / largest entry "
+                      f"{max(gaps):.3e} [1e-4], two calls equal")
+                continue
+            result = time_backward(name, x, gamma, beta, grad_out)
+            kernel_results[(name, shape)] = dict(max_gap=max(gaps), max_abs_err=max_abs, **result)
+            print(backward_line(name, rows, models, gaps, result))
+            del x, grad_out
 
 
 def asymmetric_gdn_inputs(rows, seed):
@@ -1188,11 +1352,13 @@ def phase_hyperprior(kernel_results):
     way round), timed against their bound into ``kernel_results``; then
     ``GdnFunction``'s gradients against autograd through the plain
     version, within 1e-4 of each gradient's largest entry (as
-    :func:`phase_gradient`). Then a fresh state trains through a graphed
-    epoch of :data:`HYPERPRIOR_STEPS` batches: its capture counts the
-    warm-up step's and the capture's launches, 3 + 3 a step at those
-    rows, and marks every phase; a replay counts none; one eager
-    ``train_step`` launches 3 + 3. Returns the path's launches."""
+    :func:`phase_gradient`), and the gradient kernel against its plain
+    twin there, timed beside it and its bound. Then a fresh state trains
+    through a graphed epoch of :data:`HYPERPRIOR_STEPS` batches: its
+    capture counts the warm-up step's and the capture's launches, 3 + 3
+    a step at those rows and as many backwards, and marks every phase; a
+    replay counts none; one eager ``train_step`` launches 3 + 3 and 3 + 3
+    backwards. Returns the path's launches."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train import hyperprior as hp
@@ -1243,7 +1409,15 @@ def phase_hyperprior(kernel_results):
                   f"{gaps[0]:.3e}, grad_gamma {gaps[1]:.3e}, grad_beta {gaps[2]:.3e} [1e-4]")
             if not all(gap <= 1e-4 for gap in gaps):
                 raise AssertionError(f"{name} at {rows} rows: gradient gaps {gaps}")
-            del grads, upstream, x
+            backward = name + "_backward"
+            operands = (x.unsqueeze(1), gamma.unsqueeze(0), beta.unsqueeze(0),
+                        upstream.unsqueeze(1))
+            (gaps, max_abs) = check_backward(backward, *operands)
+            result = time_backward(backward, *operands)
+            kernel_results[(backward, shape)] = dict(max_gap=max(gaps), max_abs_err=max_abs,
+                                                     **result)
+            print(backward_line(backward, rows, 1, gaps, result))
+            del grads, upstream, x, operands
 
     fns = hp.make_hyperprior_step_fns()
     generator = torch.Generator(DEVICE).manual_seed(80)
@@ -1255,6 +1429,7 @@ def phase_hyperprior(kernel_results):
                                                                      HYPERPRIOR_BATCH)
     noise = torch.Generator(DEVICE).manual_seed(81)
     per_step = {"gdn_f32": 3, "igdn_f32": 3}
+    per_step.update(backward_of(per_step))
     site_rows = {ROWS[shape]: GRAPH_PREP_STEPS for shape in HYPERPRIOR_SHAPES}
     captures = len(epoch_graph.CAPTURES)
     gk.reset_launch_counts()
@@ -1265,7 +1440,9 @@ def phase_hyperprior(kernel_results):
     for name in per_step:
         seen = {n: count for ((variant, n), count) in gk.LAUNCH_ROWS.items() if variant == name}
         print(f"  {name} rows in the capture: {seen}")
-        if seen != site_rows:
+        # The reduction of a GDN and of an IGDN site at the same rows.
+        if seen != ({(n, 1): 2 * count for (n, count) in site_rows.items()} if name == REDUCE
+                    else site_rows):
             raise AssertionError(f"hyperprior capture: {name} at rows {seen}, "
                                  f"expected {site_rows}")
     marks = epoch_graph.CAPTURES[captures]["marks"]
@@ -1304,12 +1481,25 @@ def kernel_entries(on_path, path_launches, kernel_results):
         if launches <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
         result = kernel_results[(name, shape)]
-        stacked = name in STACKED_VARIANTS
-        single = STACKED_VARIANTS[name][0] if stacked else name
+        forward = BACKWARD_VARIANTS.get(name, name)
+        stacked = forward in STACKED_VARIANTS
+        single = STACKED_VARIANTS[forward][0] if stacked else forward
+        # The gradient kernel replaces no TPU kernel. Its max_abs_err is the
+        # largest of its three gradients'; beside it the largest gap of a
+        # gradient over that gradient's largest entry. Its launches are the
+        # tile pass's; on a training path each of them asks for grad_gamma
+        # and grad_beta, so each runs one reduction (REDUCE, counted apart
+        # and held to that by the path's expectations), timed apart where
+        # the profiler's trace held every launch.
+        backward = ({"max_gap_to_largest": result["max_gap"], "reduce_launches": launches,
+                     "reduce_ms": (result["split"] or {}).get(BACKWARD_KERNELS[1]),
+                     "tile_pass_ms": (result["split"] or {}).get(BACKWARD_KERNELS[0])}
+                    if name in BACKWARD_VARIANTS else {})
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{TPU_KERNELS}:{VARIANTS[single][5]}", "launches": launches,
-            "max_abs_err": result["max_abs_err"], "ms": result["ms"],
+            "replaces": (None if name in BACKWARD_VARIANTS
+                         else f"{TPU_KERNELS}:{VARIANTS[single][5]}"), "launches": launches,
+            "max_abs_err": result["max_abs_err"], **backward, "ms": result["ms"],
             "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
             "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
             "path": path, "rows": ROWS[shape.split()[0]],
@@ -1318,7 +1508,8 @@ def kernel_entries(on_path, path_launches, kernel_results):
 
 
 # The hyperprior's entries of the kernels line (phase 13).
-HYPERPRIOR_ON_PATH = [(name, "hyperprior training", shape) for name in ("gdn_f32", "igdn_f32")
+HYPERPRIOR_ON_PATH = [(name, "hyperprior training", shape)
+                      for name in ("gdn_f32", "igdn_f32", "gdn_f32_backward", "igdn_f32_backward")
                       for shape in HYPERPRIOR_SHAPES]
 
 
@@ -1677,7 +1868,8 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     # step and its capture.
     expect_launches(f"training, {tag}", launches, {
         "gdn_f32": GRAPH_PREP_STEPS * per_step["gdn_f32"] + 2 * gdn_encode,
-        "igdn_f32": (GRAPH_PREP_STEPS + 2) * per_step["igdn_f32"]})
+        "igdn_f32": (GRAPH_PREP_STEPS + 2) * per_step["igdn_f32"],
+        **backward_of({name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})})
     print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
           f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
           f"{steps} train_steps (before the pre-fit {rd_0:.6e}); rec error "
@@ -1697,7 +1889,8 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
 
     gk.reset_launch_counts()
     fns["train_step"](state, eval_batch, noise)
-    expect_launches(f"one train_step, {tag}", dict(gk.LAUNCHES), per_step)
+    expect_launches(f"one train_step, {tag}", dict(gk.LAUNCHES),
+                    {**per_step, **backward_of(per_step)})
 
     # Times: CUDA events round one call, median of 9.
     step_ms = _median_ms(lambda: fns["train_step"](state, eval_batch, noise), 1, 9)
@@ -1886,7 +2079,9 @@ def phase_ladder(draws_equal):
     # its warm-up and capture).
     expect_launches("ladder training (part 0)", part_launches, {
         "gdn_f32_stacked": 3 * (GRAPH_PREP_STEPS + 2 + GRAPH_PREP_STEPS),
-        "igdn_f32_stacked": 3 * (2 + GRAPH_PREP_STEPS)})
+        "igdn_f32_stacked": 3 * (2 + GRAPH_PREP_STEPS),
+        **backward_of({"gdn_f32_stacked": 3 * GRAPH_PREP_STEPS,
+                       "igdn_f32_stacked": 3 * GRAPH_PREP_STEPS})})
     epoch = re.search(r"\(([0-9.]+) ladder-steps/s, ([0-9.]+) model-Mpix/s aggregate\)", printed)
     if epoch is None or f"global step {nb_batches})" not in printed_1:
         raise AssertionError("the ladder CLI's epoch lines are not as expected")
@@ -1918,7 +2113,8 @@ def phase_ladder(draws_equal):
     gk.reset_launch_counts()
     fns["train_step"](trained, eval_batch, noise)
     expect_launches("one ladder train_step", dict(gk.LAUNCHES),
-                    {"gdn_f32_stacked": 3, "igdn_f32_stacked": 3})
+                    {"gdn_f32_stacked": 3, "igdn_f32_stacked": 3,
+                     **backward_of({"gdn_f32_stacked": 3, "igdn_f32_stacked": 3})})
 
     # Model k of the stacked ladder against a single-model run from the
     # same start on the same batches and noise: one step at the JAX
@@ -2021,8 +2217,9 @@ def _campaign_launches(args, one_model=False):
     density and autoencoder phases share the latents) and decodes once,
     and the part's pre-fit and epochs replay one captured step each,
     counted at its warm-up and its capture; 3 sites a fixed-bin-width model, 2 for the
-    learned one. The ladder's models share each launch of the stacked
-    kernel; a model retrained alone launches the single-model kernel."""
+    learned one; those two steps' sites run their backward. The ladder's models share
+    each launch of the stacked kernel; a model retrained alone launches the
+    single-model kernel."""
     launches = collections.Counter()
     models = ([("", 3)] if one_model else [("_stacked", 3), ("", 2)])
     parts = [args.nb_parts - 1] if one_model else range(args.nb_parts)
@@ -2032,6 +2229,9 @@ def _campaign_launches(args, one_model=False):
                 (GRAPH_PREP_STEPS if idx_part == 0 else 0) + 2 * args.nb_epochs
                 + GRAPH_PREP_STEPS)
             launches["igdn_f32" + variant] += sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
+            for name in ("gdn_f32", "igdn_f32"):
+                launches[name + variant + "_backward"] += sites * GRAPH_PREP_STEPS
+                launches[REDUCE] += sites * GRAPH_PREP_STEPS
     return dict(launches)
 
 
@@ -2437,6 +2637,11 @@ def phase_distributed(card, draws_equal):
             per_step = {name: DIST_STEPS * sum(
                 1 for (v, _) in SHARDED_TRAIN_SITES[learn_bin_widths] if v == name)
                 for name in ("gdn_f32", "igdn_f32")}
+            # The density phase encodes without grad; the RD loss's sites
+            # each run their backward.
+            per_step.update(backward_of({name: DIST_STEPS * sum(
+                1 for (v, _) in TRAIN_SITES[learn_bin_widths] if v == name)
+                for name in ("gdn_f32", "igdn_f32")}))
             expect_launches(f"distributed training, {tag}", dict(launches), per_step)
             sharded_state = distributed.global_state(current, mesh)
             sharded_batch = distributed.global_batch(batches[0], mesh)
@@ -2556,7 +2761,9 @@ def phase_distributed(card, draws_equal):
     # Each shard is a stacked ladder of one model: its step's six GDN sites
     # (one encode, one decode) one stacked launch each.
     expect_launches("ladder over seven shards", paths["ladder over seven shards"],
-                    {"gdn_f32_stacked": 3 * len(gammas), "igdn_f32_stacked": 3 * len(gammas)})
+                    {"gdn_f32_stacked": 3 * len(gammas), "igdn_f32_stacked": 3 * len(gammas),
+                     **backward_of({"gdn_f32_stacked": 3 * len(gammas),
+                                    "igdn_f32_stacked": 3 * len(gammas)})})
     (whole, plain_host) = (distributed.fetch_replicated(sharded),
                            distributed.fetch_replicated(plain))
     (worst, outside, entries) = (0.0, 0, 0)
@@ -3084,7 +3291,8 @@ def phase_campaign(card):
         paths[path] = {name: n for (name, n) in gk.LAUNCHES.items() if n}
         rows_seen.update(gk.LAUNCH_ROWS)
         expect_launches(path, paths[path], expected)
-        on_path.extend((name, path, shape) for name in expected for shape in shapes[name])
+        on_path.extend((name, path, shape) for name in expected if name != REDUCE
+                       for shape in shapes[name])
 
     def quiet(fn, *args):
         """``fn(*args)``, printing only the lines a reader of this run needs."""
@@ -3130,7 +3338,8 @@ def phase_campaign(card):
                 expected.update(evaluation_expected)
                 record(label, expected, {"gdn_f32": TRAIN_SHAPES + STATS_SHAPES + SERVE_SHAPES,
                                          "igdn_f32": TRAIN_SHAPES + SERVE_SHAPES,
-                                         **STACKED_ENTRIES})
+                                         **STACKED_ENTRIES,
+                                         **{name: TRAIN_SHAPES for name in BACKWARD_VARIANTS}})
                 # The parts' seconds as the campaign printed them (a ladder
                 # model trained alone counts as its ladder part).
                 part_s = {f"{'learned-bw' if name.startswith('learning') else 'ladder'} part "
@@ -3407,13 +3616,22 @@ def phase_campaign(card):
 
 def check_seen_rows(rows_seen, phase="phase 9"):
     """Every kernel against its plain version at each row count ``phase``
-    launched it at (untimed where phase 2 did not time that count)."""
+    launched it at (untimed where phase 2 did not time that count); the
+    gradient kernel against its twin as :func:`check_backward` holds it."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
 
     timed = {(name, ROWS[shape]) for (name, variant) in VARIANTS.items() for shape in variant[4]}
     timed |= {(name, (ROWS[shape.split()[0]], 1 if shape.endswith("x1") else STACKED_MODELS))
               for name in STACKED_VARIANTS for shape in STACKED_SHAPES}
     for (seed, ((name, rows), launches)) in enumerate(sorted(rows_seen.items())):
+        if name == REDUCE:
+            continue  # held with its tile pass, below
+        if name in BACKWARD_VARIANTS:
+            (per_model, models) = rows if isinstance(rows, tuple) else (rows, 1)
+            (gaps, _) = check_backward(name, *backward_inputs(name, per_model, models, 50 + seed))
+            print(f"  {name:25s} rows {models} x {per_model:6d}: {launches} launches in {phase}; "
+                  f"gap / largest entry {max(gaps):.3e} [1e-4], two calls equal")
+            continue
         if name in STACKED_VARIANTS:
             (per_model, models) = rows
             (_, max_abs) = check_stacked(name, per_model, models, 50 + seed)
@@ -3455,7 +3673,7 @@ def main():
     print("phase 2: kernels against their plain versions")
     kernel_results = phase_kernels()
     kernel_results.update(phase_stacked_kernels())
-    phase_gradient()
+    phase_gradient(kernel_results)
     print("phase 3: serving (PipelinedCompressor)")
     (path_launches, pipeline_table, psnrs_fp32) = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
@@ -3528,6 +3746,13 @@ def main():
     on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
     on_path += [(name, "ladder training", shape) for name in STACKED_VARIANTS
                 for shape in TRAIN_SHAPES]
+    # The gradient kernel on the training paths (phase 2 timed it there).
+    on_path += [(name + "_backward", "training, fixed bin widths", shape)
+                for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
+    on_path += [(name + "_backward", "ladder training", shape) for name in STACKED_VARIANTS
+                for shape in TRAIN_SHAPES]
+    on_path += [(name + "_backward", "ladder over seven shards", "T/16 x1")
+                for name in STACKED_VARIANTS]
     # The pre-fit epochs (phases 5, 6): the encoder's GDN sites, counted at
     # the capture of the replayed training_fct (a replay counts none).
     on_path += [("gdn_f32", "pre-fit, fixed bin widths", shape) for shape in TRAIN_SHAPES]

@@ -1,12 +1,14 @@
 """PyTorch port: the differentiable GDN kernel wrapper.
 
 ``GdnFunction`` runs the kernel's forward (its plain version on the CPU)
-and a backward written out in plain PyTorch. The backward is held
-against ``torch.autograd.gradcheck`` in float64 and against ``jax.grad``
-of the JAX package's ``ops/gdn.py`` in float32; the routing of
-``gdn_2d`` (through ``GdnFunction`` whenever an operand requires grad,
-never a detached result) and its refusals are checked here on the CPU
-and on the card by ``chip_smoke.py``.
+and ``gdn_backward``: the gradient kernel on the card, its plain twin
+``gdn_backward_plain`` on the CPU. The backward is held against
+``torch.autograd.gradcheck`` in float64 and against ``jax.grad`` of the
+JAX package's ``ops/gdn.py`` in float32; the routing of ``gdn_2d``
+(through ``GdnFunction`` whenever an operand requires grad, never a
+detached result) and its refusals, the backward's among them, are
+checked here on the CPU and on the card by ``chip_smoke.py`` and
+``tests/test_torch_gdn_asymmetric.py``.
 """
 
 import jax
@@ -108,6 +110,41 @@ def test_cpu_tensors_never_launch_with_grad():
                            for a in _inputs(16, 128, 11)]
     gdn_2d(x, gamma, beta).sum().backward()
     assert sum(gdn_kernel.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("fault", ["transposed", "expanded", "fewer rows", "other models"])
+def test_the_backward_refuses_a_grad_out_it_cannot_read(fault):
+    """``gdn_backward`` (the one backward of both autograd functions, the
+    gradient kernel's wrapper for a CUDA tensor) checks ``grad_out`` on
+    every device before it dispatches: ``x``'s shape, C-contiguous. The
+    autograd functions hand it a contiguous copy of what autograd gives
+    (``out.sum()``'s gradient is an expanded tensor), so they never meet
+    the refusal."""
+    (x, gamma, beta, upstream) = [torch.from_numpy(a) for a in _inputs(16, 128, 15)]
+    (x, gamma, beta, upstream) = (x.unsqueeze(1), gamma.unsqueeze(0), beta.unsqueeze(0),
+                                  upstream.unsqueeze(1))
+    grad_out = {"transposed": upstream.transpose(0, 2).contiguous().transpose(0, 2),
+                "expanded": torch.ones(1, 1, 1).expand(x.shape),
+                "fewer rows": upstream[:8],
+                "other models": upstream.expand(16, 2, 128).contiguous()}[fault]
+    match = "C-contiguous" if fault in ("transposed", "expanded") else "grad_out of shape"
+    with pytest.raises(ValueError, match=match):
+        gdn_kernel.gdn_backward(x, gamma, beta, grad_out, False)
+    got = gdn_kernel.gdn_backward(x, gamma, beta, upstream, False)
+    assert all(g is not None for g in got)
+
+
+def test_a_single_models_backward_refuses_a_stack():
+    """``stacked=False`` (the backward of ``GdnFunction``, counted under the
+    single-model variant) takes one model, on every device."""
+    (x, gamma, beta, upstream) = [torch.from_numpy(a) for a in _inputs(16, 128, 16)]
+    stack = [t.unsqueeze(0).expand(2, *t.shape).contiguous() for t in (gamma, beta)]
+    (x, upstream) = [t.unsqueeze(1).expand(16, 2, 128).contiguous() for t in (x, upstream)]
+    with pytest.raises(ValueError, match="single model"):
+        gdn_kernel.gdn_backward(x, *stack, upstream, False, stacked=False)
+    got = gdn_kernel.gdn_backward(x[:, :1].contiguous(), stack[0][:1], stack[1][:1],
+                                  upstream[:, :1].contiguous(), False, stacked=False)
+    assert all(g is not None for g in got)
 
 
 @pytest.mark.parametrize("which", ["x", "gamma", "beta"])

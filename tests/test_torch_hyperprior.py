@@ -300,6 +300,10 @@ def test_cuda_graphed_epoch_against_the_eager_step_and_the_reference():
     assert gdn_kernel.LAUNCHES["gdn_f32"] == 6 and gdn_kernel.LAUNCHES["igdn_f32"] == 6
     assert {rows_: count for ((variant, rows_), count) in gdn_kernel.LAUNCH_ROWS.items()
             if variant == "gdn_f32"} == {131072: 2, 32768: 2, 8192: 2}
+    # Every site's backward through the gradient kernel.
+    assert (gdn_kernel.LAUNCHES["gdn_f32_backward"] == 6
+            and gdn_kernel.LAUNCHES["igdn_f32_backward"] == 6
+            and gdn_kernel.LAUNCHES["gdn_backward_reduce"] == 12)
     capture = epoch_graph.CAPTURES[captures]
     assert capture["marks"] == (("step", "forward", "entropy", "synthesis", "backward")
                                 + ("gdn_backward_begin", "gdn_backward_end") * 6

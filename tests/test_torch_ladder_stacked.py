@@ -134,6 +134,29 @@ def test_gdn_stacked_gradient_matches_autograd_through_the_plain_twin(inverse):
     assert gk.gdn_stacked_2d(x_grad, gamma, beta, inverse).grad_fn is not None
 
 
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asymmetric", "symmetric"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_a_stack_of_one_model_equals_the_single_model_bit_for_bit(inverse, symmetric):
+    """``GdnStackedFunction`` over a stack of one model against
+    ``GdnFunction`` on that model: the same output and the same three
+    gradients, bit for bit (one backward serves both)."""
+    (x, gamma, beta) = [_t(a) for a in _gdn_case(6 + int(inverse), rows=40, models=1)]
+    if not symmetric:
+        gamma = gamma * torch.triu(torch.ones(128, 128)) + 0.3 * gamma * torch.tril(
+            torch.ones(128, 128), -1)
+    grad_out = _t(numpy.random.default_rng(7).normal(size=x.shape).astype(numpy.float32))
+    stacked = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    single = [t.clone().requires_grad_(True) for t in (x[:, 0], gamma[0], beta[0])]
+    out_stacked = gk.GdnStackedFunction.apply(*stacked, inverse)
+    out_single = gk.GdnFunction.apply(*single, inverse)
+    assert torch.equal(out_stacked[:, 0], out_single)
+    out_stacked.backward(grad_out)
+    out_single.backward(grad_out[:, 0])
+    for (a, b) in zip((stacked[0].grad[:, 0], stacked[1].grad[0], stacked[2].grad[0]),
+                      (leaf.grad for leaf in single)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("learn_bin_widths", [False, True])
 def test_stacked_transforms_equal_the_single_model_transforms(learn_bin_widths):
     """On the CPU a conv grouped over the models sums each model's terms
