@@ -6,26 +6,12 @@ The reference's flagship study trains ONE model per rate point (gamma in
 family trains together: the training state is stacked along a leading
 ladder axis, every mini-batch is shared across the ladder (every
 reference run consumes the same training set) and the uniform
-quantisation noise is drawn per model.
-
-A ladder step is one program over all the models, the counterpart of the
-JAX ladder's ``vmap`` of the single-model step. The models' maps sit
-side by side in the channels (``models/conv_eae.py::encode_stacked``,
-``decode_stacked``): every convolution is grouped over the models (the
-first one is one conv with M * 128 outputs of the shared batch), every
-GDN site is one launch of the stacked fp32 kernel, and the density
-model, the projections and Adam run once over the stacked leaves. The
-loss is the sum over the models of each model's ``rec_error + gamma_k *
-approx_entropy + weight_decay`` (``EntropyAutoencoder.py:308-313``): the
-models share no parameter, so one backward pass gives each its own
-gradient. The learning rate is ``LR_EAE`` times 0.1 from each of the
-model's gamma-keyed boundaries on (``train.state.learning_rate``, the
-JAX ladder's ``_lr``). Nothing in a step reads a value back to the
-host, so on the card an epoch is the replays of one captured ladder
-step (``train/epoch_graph.py``, the counterpart of the JAX ladder's
-scanned epoch); on the CPU it is the loop of ladder steps.
-
-The ladder family is the fixed-bin-width architecture
+quantisation noise is drawn per model. A ladder step is the model-axis
+step of ``train/step.py`` (:class:`train.step.ModelAxisStep`), one
+program over all the models, the counterpart of the JAX ladder's
+``vmap`` of the single-model step; on the card an epoch is the replays
+of one captured ladder step, on the CPU the loop of ladder steps. The
+ladder family is the fixed-bin-width architecture
 (``learn_bin_widths=False``): the bin widths stay at their init.
 
 ``ladder_slice_state`` exports one ladder entry as a standard
@@ -39,17 +25,12 @@ independent); its epoch is graphed on its device as the unsharded
 ladder's is. ``parallel.distributed.fetch_replicated`` stacks the ladder
 again.
 
-**Noise.** Where the reference takes a random key, these functions take
-``noise``: a ``torch.Generator`` on the state's device, or the noise
-itself, one entry per model (a tensor of the latents' shape for
-``training_fct`` and ``evaluation``, a pair ``(noise_fct, noise_eae)``
-for ``train_step``). Given per model, it is stacked and each model gets
-its own entry. From a generator, each phase draws ``(M, *latent)`` at
-once, model ``m``'s noise being entry ``m``, the density phase first;
-this is not the order of the loop over single models that the ladder was
-before (each model's two phases in turn), so a generator's numbers land
-on other models and phases than they did there. A sharded ladder's epoch
-runs block after block (block ``i``'s whole epoch, then block ``i + 1``'s),
+**Noise** is given as ``train/step.py`` says: a generator, or one
+entry per model. A generator's ``(M, *latent)`` draw a phase is not the
+order of the loop over single models that the ladder was before (each
+model's two phases in turn), so a generator's numbers land on other
+models and phases than they did there. A sharded ladder's epoch runs
+block after block (block ``i``'s whole epoch, then block ``i + 1``'s),
 eagerly or graphed, so blocks that share a generator draw in that order.
 """
 
@@ -58,18 +39,12 @@ from typing import Dict, NamedTuple
 import torch
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
-from autoencoder_based_image_compression_tpu_torch.models import conv_eae
-from autoencoder_based_image_compression_tpu_torch.ops import density as dens
-from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import epoch_fn
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     TrainState,
-    adam_update,
     init_train_state,
-    ladder_boundaries,
     map_state,
 )
-from autoencoder_based_image_compression_tpu_torch.train.step import _leaves, _project_gdn
-from autoencoder_based_image_compression_tpu_torch.utils.tracing import phase
+from autoencoder_based_image_compression_tpu_torch.train.step import ModelAxisStep, _per_model
 
 
 def ladder_stack_states(states):
@@ -159,170 +134,6 @@ def shard_ladder_state(ladder_states, mesh, axis="data"):
     return LadderShards(mesh, axis, nb_models, blocks)
 
 
-def _per_model(noise, nb_models):
-    """``noise`` checked to be a generator or one entry per model."""
-    if not isinstance(noise, torch.Generator) and len(noise) != nb_models:
-        raise ValueError(f"{len(noise)} noises for {nb_models} models.")
-    return noise
-
-
-def _stacked_noise(noise, y):
-    """Uniform noise in [-0.5, 0.5) laid out as the stacked latents ``y``
-    (``(B, h, w, M * 128)``): drawn as ``(M, B, h, w, 128)`` from a
-    generator, or the M given tensors stacked."""
-    (batch, height, width, channels) = y.shape
-    nb_models = channels // csts.NB_MAPS_3
-    if isinstance(noise, torch.Generator):
-        drawn = torch.rand((nb_models, batch, height, width, csts.NB_MAPS_3), generator=noise,
-                           device=y.device, dtype=y.dtype) - 0.5
-    else:
-        drawn = torch.stack([n.to(device=y.device) for n in noise])
-        if drawn.shape[1:] != (batch, height, width, csts.NB_MAPS_3):
-            raise ValueError(f"noise of shape {tuple(drawn.shape[1:])} for latents of shape "
-                             f"{(batch, height, width, csts.NB_MAPS_3)}.")
-    return drawn.permute(1, 2, 3, 0, 4).reshape(y.shape)
-
-
-def _flatten_maps_stacked(y_tilde, nb_models):
-    """(B, h, w, M * C) -> (M, C, B*h*w): row ``(m, i)`` gathers every
-    sample of model ``m``'s map ``i`` (``train.step._flatten_maps`` per
-    model)."""
-    return y_tilde.reshape(-1, nb_models, y_tilde.shape[-1] // nb_models).permute(1, 2, 0)
-
-
-def _expanded_tables(states, y, ppi, max_itvs):
-    """The density tables grown to hold each model's latents, and their
-    masks; each model's largest latent stays on the device."""
-    nb_models = states.step.shape[0]
-    max_abs = (y.reshape(-1, nb_models, y.shape[-1] // nb_models).abs().amax(dim=(0, 2))
-               + 0.5 * states.bin_widths.amax(dim=-1))
-    table = dens.expand_table(states.density, max_abs, ppi, max_itvs)
-    return (table, dens.active_mask(table.nb_itvs_per_side, ppi, max_itvs))
-
-
-def _density_update_stacked(states, y, noise, ppi, max_itvs):
-    """``train.step._density_update`` of every model at once on the
-    stacked latents ``y``: the expansion, one SGD step on the sum of the
-    models' density losses (each model's table gets its own gradient) and
-    the projection; the noise is drawn here."""
-    nb_models = states.step.shape[0]
-    with torch.no_grad():
-        y_tilde = y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y)
-        (table, mask) = _expanded_tables(states, y, ppi, max_itvs)
-        samples = _flatten_maps_stacked(y_tilde, nb_models)
-    parameters = table.parameters.detach().requires_grad_(True)
-    with torch.enable_grad():
-        prob = dens.approximate_probability(samples, parameters, ppi, max_itvs)
-        loss = torch.sum(dens.loss_density_approximation(prob, parameters, mask, ppi))
-    (grads,) = torch.autograd.grad(loss, parameters)
-    with torch.no_grad():
-        new_parameters = dens.project_density_parameters(
-            table.parameters - csts.LR_FCT * grads, mask)
-    return states._replace(density=table._replace(parameters=new_parameters))
-
-
-def _rd_loss_stacked(params, states, visible_units, y, noise, gammas, ppi, max_itvs):
-    """``train.step._rd_loss`` of every model at once, from the float32
-    batch's stacked latents ``y``: ``(sum over the models of rec_error +
-    gamma * approx_entropy + weight_decay, (rec_errors,
-    approx_entropies))``, the last two ``(M,)``; the noise is drawn here."""
-    nb_models = states.step.shape[0]
-    y_tilde = y + states.bin_widths.reshape(-1) * _stacked_noise(noise, y)
-    prob = dens.approximate_probability(_flatten_maps_stacked(y_tilde, nb_models),
-                                        states.density.parameters, ppi, max_itvs)
-    approx_entropy = dens.approximate_entropy(prob, states.bin_widths)
-    reconstruction = conv_eae.decode_stacked(params, y_tilde, False)
-    rec_error = torch.mean(torch.sum(torch.square(visible_units - reconstruction), dim=(1, 2)),
-                           dim=0)
-    weight_decay = csts.WEIGHT_DECAY_P * conv_eae.weight_l2_norms(params)
-    loss = rec_error + gammas * approx_entropy + weight_decay
-    return (torch.sum(loss), (rec_error, approx_entropy))
-
-
-class _StackedLadder:
-    """The stacked step functions of the models ``gammas``: a whole
-    ladder, or one block of a sharded one."""
-
-    def __init__(self, gammas, ppi, max_itvs):
-        (self.gammas, self.ppi, self.max_itvs) = (list(gammas), ppi, max_itvs)
-        self._constants = {}
-        self.fit_epoch = epoch_fn(self.training_fct)
-        self.train_epoch = epoch_fn(self.train_step)
-
-    def constants(self, device):
-        """``(gammas, learning-rate boundaries)`` as tensors on ``device``,
-        made once per device (a capture refuses a host-to-device copy,
-        and the warm-up step before it makes them)."""
-        if device not in self._constants:
-            self._constants[device] = (
-                torch.tensor(self.gammas, dtype=torch.float32, device=device),
-                ladder_boundaries(self.gammas, device))
-        return self._constants[device]
-
-    def training_fct(self, states, batch, noise):
-        noise = _per_model(noise, len(self.gammas))
-        with phase("density"):
-            with torch.no_grad():
-                y = conv_eae.encode_stacked(states.params, batch.to(torch.float32), False)
-            return _density_update_stacked(states, y, noise, self.ppi, self.max_itvs)
-
-    def _autoencoder_phase(self, states, params, batch, y, noise):
-        """One Adam step of every model on the sum of their losses, then
-        the GDN projections (``train.step._eae_bw_update`` with fixed bin
-        widths), in the phases ``forward``, ``backward`` and
-        ``optimizer``. ``params`` are the autograd leaves of
-        ``states.params`` and ``y`` the batch's latents under them, or
-        ``None`` to encode the batch here."""
-        (gammas, boundaries) = self.constants(states.step.device)
-        with phase("forward"), torch.enable_grad():
-            batch = batch.to(torch.float32)
-            if y is None:
-                y = conv_eae.encode_stacked(params, batch, False)
-            (loss, _) = _rd_loss_stacked(params, states, batch, y, noise, gammas, self.ppi,
-                                         self.max_itvs)
-        names = list(params)
-        with phase("backward"):
-            grads = torch.autograd.grad(loss, [params[name] for name in names])
-        with phase("optimizer"), torch.no_grad():
-            (new_params, opt_eae) = adam_update(dict(zip(names, grads)), states.opt_eae,
-                                                states.params, boundaries)
-            new_params = _project_gdn(new_params, False)
-        return states._replace(params=new_params, opt_eae=opt_eae, step=states.step + 1)
-
-    def training_eae(self, states, batch, noise):
-        """The autoencoder phase alone, which encodes the batch itself."""
-        (params, _) = _leaves(states, False)
-        return self._autoencoder_phase(states, params, batch, None, noise)
-
-    def train_step(self, states, batch, noise):
-        # One generator serves both phases in turn, the density phase first.
-        if isinstance(noise, torch.Generator):
-            (noise_fct, noise_eae) = (noise, noise)
-        else:
-            _per_model(noise, len(self.gammas))
-            (noise_fct, noise_eae) = ([pair[0] for pair in noise], [pair[1] for pair in noise])
-        # One encode serves both phases: the density phase changes only the
-        # tables, which the encoder never reads.
-        (params, _) = _leaves(states, False)
-        with phase("density"):
-            batch = batch.to(torch.float32)
-            with torch.enable_grad():
-                y = conv_eae.encode_stacked(params, batch, False)
-            states = _density_update_stacked(states, y.detach(), noise_fct, self.ppi,
-                                             self.max_itvs)
-        return self._autoencoder_phase(states, params, batch, y, noise_eae)
-
-    @torch.no_grad()
-    def evaluation(self, states, batch, noise):
-        (gammas, _) = self.constants(states.step.device)
-        batch = batch.to(torch.float32)
-        y = conv_eae.encode_stacked(states.params, batch, False)
-        (_, indicators) = _rd_loss_stacked(states.params, states, batch, y,
-                                           _per_model(noise, len(self.gammas)), gammas,
-                                           self.ppi, self.max_itvs)
-        return indicators
-
-
 def _block_noise(noise, models, device):
     """Block ``models`` (a slice) of one per-model noise, on ``device``; a
     generator as it is."""
@@ -348,14 +159,15 @@ def make_ladder_step_fns(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     block, and loop on the CPU; their ``phase_ms()`` reads the stamps of
     the whole ladder's last graphed epoch (``train/epoch_graph.py``).
     """
-    whole = _StackedLadder(gammas, ppi, max_itvs)
+    whole = ModelAxisStep(gammas, False, ppi, max_itvs)
     blocks = {}
 
     def block_fns(states, i):
         """Block ``i``'s stacked functions and its models, as a slice."""
         per = states.per_shard
         if (i, per) not in blocks:
-            blocks[(i, per)] = _StackedLadder(gammas[i * per:(i + 1) * per], ppi, max_itvs)
+            blocks[(i, per)] = ModelAxisStep(gammas[i * per:(i + 1) * per], False, ppi,
+                                             max_itvs)
         return (blocks[(i, per)], slice(i * per, (i + 1) * per))
 
     def over_blocks(name):
@@ -408,4 +220,4 @@ def make_ladder_eval_fn(gammas, ppi=csts.NB_POINTS_PER_INTERVAL,
     approx_entropies)`` of shape (K,) each (the noise-perturbed RD-loss
     components, reference ``EntropyAutoencoder.py:542-589``'s core
     indicators over the ladder), one pass over every model."""
-    return _StackedLadder(gammas, ppi, max_itvs).evaluation
+    return ModelAxisStep(gammas, False, ppi, max_itvs).evaluation

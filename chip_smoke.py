@@ -19,8 +19,9 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    rows 49,152, 12,288 and 3,072; the tooling's 16 x 16 probe latent: rows
    4,096, 1,024 and 256 for IGDN in fp32), and at ragged row counts; the
    stacked fp32 kernel (the gamma ladder's GDN sites, one launch for all
-   its models) at 7 x 40,960, 7 x 10,240 and 7 x 2,560 rows, a sharded
-   ladder's block of one model (1 x 2,560) and a ragged 7 x 40,997, each
+   its models) at 7 x 40,960, 7 x 10,240 and 7 x 2,560 rows, one model
+   at the same rows (a one-model training step, and a sharded ladder's
+   block of one model at 1 x 2,560) and a ragged 7 x 40,997, each
    model of it equal to the single-model kernel on the same rows bit for
    bit; then the gradient of the fp32 kernel's ``GdnFunction`` (the
    kernel forward, the gradient kernel backward) against autograd through
@@ -50,7 +51,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    ``evaluation`` (same noise) falls over the steps, the projections
    hold, the gradient of the loss through the kernels agrees with the
    gradient through plain GDN, and one ``train_step`` launches the
-   expected kernels. Then the graphed epoch against the eager loop from
+   expected kernels (the stacked kernel at one model's rows: one model
+   trains as a stack of one). Then the graphed epoch against the eager loop from
    one state: one step within 1e-4 of each leaf's largest entry (per-batch
    noise, and a generator where a graph's draws equal the eager ones,
    which is checked first), one of two graphed epochs of 12 steps within
@@ -386,9 +388,20 @@ SHARDED_TRAIN_SITES = {learn: ENCODE_SITES[learn] + TRAIN_SITES[learn]
 STACKED_VARIANTS = {"gdn_f32_stacked": ("gdn_f32", False),
                     "igdn_f32_stacked": ("igdn_f32", True)}
 STACKED_MODELS = 7
-# Its timed shapes: a ladder step's rows for the seven models, and a
-# sharded ladder's block of one model.
-STACKED_SHAPES = TRAIN_SHAPES + ("T/16 x1",)
+# One model trains as a stack of one (train/step.py): a training step's
+# GDN sites launch the stacked kernel at (rows, 1).
+ONE_MODEL = {single: name for (name, (single, _)) in STACKED_VARIANTS.items()}
+
+
+def one_model_sites(sites):
+    """The stacked kernel's ``(variant, shape)`` of a one-model training
+    step's GDN ``sites``."""
+    return tuple((ONE_MODEL[name], f"{shape} x1") for (name, shape) in sites)
+
+
+# Its timed shapes: a ladder step's rows for the seven models, and one
+# model's (a one-model step's, and a sharded ladder's block of one).
+STACKED_SHAPES = TRAIN_SHAPES + tuple(f"{shape} x1" for shape in TRAIN_SHAPES)
 # The gradient kernel (``gdn_backward``, the backward of ``GdnFunction`` and
 # ``GdnStackedFunction``; its tile pass counted once a call as
 # ``<forward>_backward``, its reduction as ``REDUCE``): the forward variant
@@ -1545,21 +1558,23 @@ def check_projections(state, learn_bin_widths, ppi, max_itvs):
 
 def check_rd_gradient(state, batch, noise, learn_bin_widths, ppi, max_itvs):
     """The gradient of the rate-distortion loss through the kernels
-    against the same through plain GDN (the wrapper of ``conv_eae``
-    swapped for the plain version), same state, batch and noise. Each
-    parameter's gradient within 1e-4 of its largest entry."""
+    against the same through plain GDN (the stacked wrapper of
+    ``conv_eae``, which one model's step runs as a stack of one, swapped
+    for the plain version), same state, batch and noise. Each parameter's
+    gradient within 1e-4 of its largest entry."""
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import step
 
     def plain_nhwc(x, gamma, beta, inverse=False):
-        return gk.gdn_2d_plain(x, gamma, beta, inverse)
+        stacked = x.reshape(-1, gamma.shape[0], gamma.shape[-1])
+        return gk.gdn_stacked_2d_plain(stacked, gamma, beta, inverse).reshape(x.shape)
 
     args = (state, batch, noise, TRAIN_GAMMA, learn_bin_widths, ppi, max_itvs)
     gk.reset_launch_counts()
     (grads, grads_bw, loss) = step.rd_gradients(*args)
     launched = sum(gk.LAUNCHES.values())
-    with mock.patch.object(conv_eae, "gdn_nhwc", plain_nhwc):
+    with mock.patch.object(conv_eae, "gdn_stacked_nhwc", plain_nhwc):
         (plain, plain_bw, plain_loss) = step.rd_gradients(*args)
     if launched == 0 or sum(gk.LAUNCHES.values()) != launched:
         raise AssertionError("the kernel run did not launch, or the plain run did")
@@ -1837,8 +1852,10 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         full = loop.evaluate_full(state, eval_batch, fns, TRAIN_GAMMA, eval_noise)
         return (full["loss_density"], full["scaled_approx_entropy"] + full["rec_error"], full)
 
-    per_step = {name: sum(1 for (variant, _) in TRAIN_SITES[learn_bin_widths]
-                           if variant == name) for name in ("gdn_f32", "igdn_f32")}
+    # The steps launch the stacked kernel (a stack of one), the
+    # evaluations the single-model one.
+    per_step = {ONE_MODEL[name]: sum(1 for (variant, _) in TRAIN_SITES[learn_bin_widths]
+                                     if variant == name) for name in ("gdn_f32", "igdn_f32")}
     gdn_encode = len(ENCODE_SITES[learn_bin_widths])
     (density_0, rd_0, _) = indicators(state)
     # The pre-fit epoch: the replays of one captured training_fct, which
@@ -1847,7 +1864,7 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     state = loop.preliminary_fitting(dataset, state, fns, TRAIN_BATCH, 1, noise)
     prefit_launches = dict(gk.LAUNCHES)
     expect_launches(f"pre-fit, {tag} ({nb_batches} batches, one capture)", prefit_launches,
-                    {"gdn_f32": GRAPH_PREP_STEPS * gdn_encode})
+                    {"gdn_f32_stacked": GRAPH_PREP_STEPS * gdn_encode})
     gk.reset_launch_counts()
     (density_1, rd_1, _) = indicators(state)
     shuffle = numpy.random.default_rng(3)
@@ -1862,13 +1879,13 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     (density_2, rd_2, full) = indicators(state)
     launches = dict(gk.LAUNCHES)
     steps = TRAIN_EPOCHS * nb_batches
-    sites = TRAIN_SITES[learn_bin_widths]
+    sites = one_model_sites(TRAIN_SITES[learn_bin_widths])
     # Two evaluations encode and decode beside the steps' launches; the
     # epochs are replays of one captured step, counted at its warm-up
     # step and its capture.
     expect_launches(f"training, {tag}", launches, {
-        "gdn_f32": GRAPH_PREP_STEPS * per_step["gdn_f32"] + 2 * gdn_encode,
-        "igdn_f32": (GRAPH_PREP_STEPS + 2) * per_step["igdn_f32"],
+        "gdn_f32": 2 * gdn_encode, "igdn_f32": 2 * per_step["igdn_f32_stacked"],
+        **{name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()},
         **backward_of({name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})})
     print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
           f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
@@ -2218,20 +2235,22 @@ def _campaign_launches(args, one_model=False):
     and the part's pre-fit and epochs replay one captured step each,
     counted at its warm-up and its capture; 3 sites a fixed-bin-width model, 2 for the
     learned one; those two steps' sites run their backward. The ladder's models share
-    each launch of the stacked kernel; a model retrained alone launches the
-    single-model kernel."""
+    each launch of the stacked kernel; a model trained alone steps as a stack of one,
+    on the stacked kernel too, and evaluates on the single-model kernel."""
     launches = collections.Counter()
-    models = ([("", 3)] if one_model else [("_stacked", 3), ("", 2)])
+    # (sites, the evaluations' variant, the steps' variant)
+    models = ([(3, "", "_stacked")] if one_model else
+              [(3, "_stacked", "_stacked"), (2, "", "_stacked")])
     parts = [args.nb_parts - 1] if one_model else range(args.nb_parts)
     for idx_part in parts:
-        for (variant, sites) in models:
-            launches["gdn_f32" + variant] += sites * (
-                (GRAPH_PREP_STEPS if idx_part == 0 else 0) + 2 * args.nb_epochs
-                + GRAPH_PREP_STEPS)
-            launches["igdn_f32" + variant] += sites * (2 * args.nb_epochs + GRAPH_PREP_STEPS)
+        for (sites, evaluated, stepped) in models:
             for name in ("gdn_f32", "igdn_f32"):
-                launches[name + variant + "_backward"] += sites * GRAPH_PREP_STEPS
+                launches[name + evaluated] += sites * 2 * args.nb_epochs
+                launches[name + stepped] += sites * GRAPH_PREP_STEPS
+                launches[name + stepped + "_backward"] += sites * GRAPH_PREP_STEPS
                 launches[REDUCE] += sites * GRAPH_PREP_STEPS
+            if idx_part == 0:
+                launches["gdn_f32" + stepped] += sites * GRAPH_PREP_STEPS
     return dict(launches)
 
 
@@ -2574,8 +2593,8 @@ def phase_distributed(card, draws_equal):
         make_sharded_step_fns,
     )
     from autoencoder_based_image_compression_tpu_torch.train import ladder
+    from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import epoch_over_rows
     from autoencoder_based_image_compression_tpu_torch.train.step import (
-        epoch_over_rows,
         make_step_fns,
         rd_gradients,
     )
@@ -3741,22 +3760,24 @@ def main():
                 # The bench runs every variant and the fp32 path at the batch of 24.
                 ("gdn_bf16", "serving bench", "B/4"), ("gdn_bf16", "serving bench", "B/8"),
                 ("igdn_bf16", "serving bench", "B/8"), ("igdn_f32", "serving bench", "B/4")]
-    on_path += [(name, "training, fixed bin widths", shape)
-                for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
-    on_path += [(name, "training, learned bin widths", "T/4") for name in ("gdn_f32", "igdn_f32")]
+    # One model's training steps launch the stacked kernel at its rows.
+    on_path += [(name, "training, fixed bin widths", f"{shape} x1")
+                for name in STACKED_VARIANTS for shape in TRAIN_SHAPES]
+    on_path += [(name, "training, learned bin widths", "T/4 x1") for name in STACKED_VARIANTS]
     on_path += [(name, "ladder training", shape) for name in STACKED_VARIANTS
                 for shape in TRAIN_SHAPES]
     # The gradient kernel on the training paths (phase 2 timed it there).
-    on_path += [(name + "_backward", "training, fixed bin widths", shape)
-                for name in ("gdn_f32", "igdn_f32") for shape in TRAIN_SHAPES]
+    on_path += [(name + "_backward", "training, fixed bin widths", f"{shape} x1")
+                for name in STACKED_VARIANTS for shape in TRAIN_SHAPES]
     on_path += [(name + "_backward", "ladder training", shape) for name in STACKED_VARIANTS
                 for shape in TRAIN_SHAPES]
     on_path += [(name + "_backward", "ladder over seven shards", "T/16 x1")
                 for name in STACKED_VARIANTS]
     # The pre-fit epochs (phases 5, 6): the encoder's GDN sites, counted at
     # the capture of the replayed training_fct (a replay counts none).
-    on_path += [("gdn_f32", "pre-fit, fixed bin widths", shape) for shape in TRAIN_SHAPES]
-    on_path += [("gdn_f32", "pre-fit, learned bin widths", "T/4")]
+    on_path += [("gdn_f32_stacked", "pre-fit, fixed bin widths", f"{shape} x1")
+                for shape in TRAIN_SHAPES]
+    on_path += [("gdn_f32_stacked", "pre-fit, learned bin widths", "T/4 x1")]
     on_path += [("gdn_f32_stacked", "ladder pre-fit", shape) for shape in TRAIN_SHAPES]
     on_path += [(name, "rd study", shape) for name in ("gdn_f32", "igdn_f32")
                 for shape in SERVE_SHAPES]

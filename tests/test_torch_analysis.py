@@ -12,6 +12,8 @@ measured: equal); the Laplace fits of the latents within 1e-3 (relative
 for the scales); the figures' arrays as the latents, the rest equal.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import functools
 import os
 

@@ -1,6 +1,8 @@
 """PyTorch port: the serving bench's smoke mode on the CPU, as a user
 runs it, and the gate probe it is built on."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 import subprocess

@@ -10,6 +10,8 @@ and exports that the reference package loads. The finalisation script's
 commands all parse their arguments.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 import subprocess

@@ -5,6 +5,8 @@ loads in the other and compares equal, bit for bit: saving and loading
 only permute and copy.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 

@@ -5,6 +5,8 @@ encoder that quantises the frame coarsely: the HM binary is a third-party
 build that the repository does not carry.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import stat
 import subprocess

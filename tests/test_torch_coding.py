@@ -1,6 +1,8 @@
 """PyTorch port: the coder binding, the .aeic container and the codec
 CLI against the JAX package's."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import pickle
 import subprocess

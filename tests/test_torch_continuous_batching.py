@@ -2,6 +2,8 @@
 cases of tests/test_continuous_batching.py) and stream_roundtrip against
 the JAX package's."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import threading
 

@@ -5,6 +5,8 @@ generated image folders and the same random inputs the two packages must
 give equal arrays. No test touches the network: the fetcher is a fake.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import io
 import os
 import pickle

@@ -8,6 +8,8 @@ terms) may be taken in another order, hence rtol 1e-5 on losses and
 entropies, and exact equality wherever no reduction is involved.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy

@@ -25,6 +25,8 @@ sharded evaluation within rtol 1e-4 of the JAX package's; the spatial
 round trip within rtol 1e-4, atol 1e-4.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import socket
 import subprocess

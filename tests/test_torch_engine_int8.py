@@ -2,6 +2,8 @@
 it against the JAX package's, on the trained weights; the plain strided
 forms of conv_1 / tconv_6 against their space-to-depth forms."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax.numpy as jnp

@@ -11,6 +11,8 @@ JAX package's ``train_step`` within the bounds of
 2, ``max_itvs=32``, three batches, a ladder of three gammas.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy
@@ -103,7 +105,7 @@ def test_captured_step_body_equals_the_eager_loop(model, form):
 
     program = epoch_graph.EpochProgram(fns["train_step"], state, dataset, rows, noise())
     got = _run_eagerly(program, state, dataset, rows, noise())
-    expected = tstep.epoch_over_rows(fns["train_step"], state, dataset, rows, noise())
+    expected = epoch_graph.epoch_over_rows(fns["train_step"], state, dataset, rows, noise())
     _assert_states_equal(got, expected)
     assert torch.equal(state.step + 3, got.step)
     assert int(program.counter) == 3
@@ -193,7 +195,7 @@ def test_train_epoch_on_a_cpu_state_is_the_eager_loop(model, monkeypatch):
     (state, fns) = _model(model)
     (dataset, rows) = _data()
     got = fns["train_epoch"](state, dataset, rows.numpy(), _noises(model, rows.shape[0]))
-    expected = tstep.epoch_over_rows(fns["train_step"], state, dataset, rows,
+    expected = epoch_graph.epoch_over_rows(fns["train_step"], state, dataset, rows,
                                      _noises(model, rows.shape[0]))
     _assert_states_equal(got, expected)
     with pytest.raises(ValueError, match="2 noises for 3 batches"):
@@ -250,7 +252,7 @@ def test_graphed_epoch_equals_the_eager_loop_on_the_card(model):
              else [tuple(n.cuda() for n in p) for p in pair]
              for pair in _noises(model, 1)]
     got = fns["train_epoch"](state, dataset, rows, noise)
-    expected = tstep.epoch_over_rows(fns["train_step"], state, dataset, rows, noise)
+    expected = epoch_graph.epoch_over_rows(fns["train_step"], state, dataset, rows, noise)
     for (a, b) in zip(state_leaves(got), state_leaves(expected)):
         (a, b) = (a.double(), b.double())
         assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-6)

@@ -6,6 +6,8 @@ On the CPU the wrappers run the plain versions; the tests marked
 ``cuda`` hold the CUDA kernels against them on a card.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax.numpy as jnp

@@ -14,6 +14,8 @@ launches against the same on the card. Imports no JAX, so that the
 card's machine runs this file (``-m cuda --noconftest``).
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import itertools
 
 import pytest

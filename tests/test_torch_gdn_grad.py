@@ -11,6 +11,8 @@ checked here on the CPU and on the card by ``chip_smoke.py`` and
 ``tests/test_torch_gdn_asymmetric.py``.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy

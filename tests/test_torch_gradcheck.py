@@ -9,6 +9,8 @@ port's central differences (taken in float64) sit within 1e-5 of its
 analytic gradient, closer than JAX's (taken around a float32 function).
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax.numpy as jnp
 import numpy
 import pytest

@@ -17,6 +17,8 @@ is rounding alone may move the other way: after three steps a leaf's
 change is held within 1 % of the reference's change in norm.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 

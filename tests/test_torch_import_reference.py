@@ -5,6 +5,8 @@ checkpoint the test writes itself. Equal arrays are required (the
 importer only renames, permutes and embeds); the imported models then
 decode within rtol 1e-5 / atol 1e-4 of the JAX package's decode."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax.numpy as jnp
 import numpy
 import pytest

@@ -3,6 +3,8 @@ two-process tests' worker, imports JAX, optax or the JAX package (an AST
 walk: a text search would be fooled by the port's own package name, which
 extends the JAX package's)."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import ast
 import os
 

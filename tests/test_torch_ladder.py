@@ -24,8 +24,13 @@ port's second step leaves 12,533 entries of the gamma 96,000 model more
 than 1e-5 from the JAX ladder's, all inside the bound of 4e-4. The
 port's ladder is one program over the stacked models and is held
 against its own sequential single-model runs at the JAX package's
-bounds for its vmapped ladder against single models.
+bounds for its vmapped ladder against single models; so is a ladder of
+two learned-bin-width models, through the model-axis step
+(``train.step.ModelAxisStep``) that the ladder's functions run with
+fixed bin widths.
 """
+
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
 
 import functools
 import os
@@ -49,7 +54,7 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     learning_rate,
     map_state,
 )
-from autoencoder_based_image_compression_tpu_torch.train.step import make_step_fns
+from autoencoder_based_image_compression_tpu_torch.train.step import ModelAxisStep, make_step_fns
 
 GAMMAS = [10000.0, 96000.0]
 LATENT_SHAPE = (2, 2, 2, 128)
@@ -200,17 +205,31 @@ def test_bin_widths_are_untouched_and_models_diverge():
     assert not torch.allclose(last.params["weights_1"][0], last.params["weights_1"][1])
 
 
-def test_ladder_equals_sequential_single_models():
-    (_, _, torch_states) = _trajectories()
-    singles = [tladder.ladder_slice_state(torch_states[0], k) for k in range(len(GAMMAS))]
-    single_fns = [make_step_fns(gamma, False) for gamma in GAMMAS]
+@pytest.mark.parametrize("learn_bin_widths", [False, True], ids=["fixed", "learned"])
+def test_ladder_equals_sequential_single_models(learn_bin_widths):
     keys = [jax.random.PRNGKey(100 + i) for i in range(3)]
+    batches = [_t(_batch(seed)) for seed in (7, 8, 9)]
+    if learn_bin_widths:
+        # Two learned-bin-width models through the model-axis step, which
+        # the ladder's own functions (fixed bin widths) do not reach.
+        start = tladder.ladder_stack_states([
+            init_train_state(torch.Generator().manual_seed(k), 1.0, True, device="cpu")
+            for k in range(len(GAMMAS))])
+        stack = ModelAxisStep(GAMMAS, True)
+        ladder = stack.training_fct(start, batches[0], _fct_noise(keys[0]))
+        for (batch, key) in zip(batches[1:], keys[1:]):
+            ladder = stack.train_step(ladder, batch, _step_noise(key))
+    else:
+        (_, _, torch_states) = _trajectories()
+        (start, ladder) = (torch_states[0], torch_states[-1])
+    singles = [tladder.ladder_slice_state(start, k) for k in range(len(GAMMAS))]
+    single_fns = [make_step_fns(gamma, learn_bin_widths) for gamma in GAMMAS]
     fct_noise = _fct_noise(keys[0])
-    singles = [single_fns[k]["training_fct"](singles[k], _t(_batch(7)), fct_noise[k])
+    singles = [single_fns[k]["training_fct"](singles[k], batches[0], fct_noise[k])
                for k in range(len(GAMMAS))]
-    for (seed, key) in ((8, keys[1]), (9, keys[2])):
+    for (batch, key) in zip(batches[1:], keys[1:]):
         noise = _step_noise(key)
-        singles = [single_fns[k]["train_step"](singles[k], _t(_batch(seed)), noise[k])
+        singles = [single_fns[k]["train_step"](singles[k], batch, noise[k])
                    for k in range(len(GAMMAS))]
     # The ladder is one program over the stacked models (grouped convs,
     # the stacked GDN kernel, batched matmuls), so it is held at the JAX
@@ -219,7 +238,7 @@ def test_ladder_equals_sequential_single_models():
     # numeric noise floor can flip Adam's update, everything else agrees
     # tightly; the density fit's SGD amplifies the same noise.
     for k in range(len(GAMMAS)):
-        got = tck.state_to_jax(tladder.ladder_slice_state(torch_states[-1], k))
+        got = tck.state_to_jax(tladder.ladder_slice_state(ladder, k))
         expected = tck.state_to_jax(singles[k])
         assert set(got) == set(expected)
         for key in expected:
@@ -231,6 +250,10 @@ def test_ladder_equals_sequential_single_models():
                 numpy.testing.assert_allclose(got[key], expected[key], rtol=5e-4, atol=1e-4)
             elif not (".mu[" in key or ".nu[" in key):  # the counts, the extent, bin widths
                 numpy.testing.assert_array_equal(got[key], expected[key], err_msg=key)
+    if learn_bin_widths:  # the bin widths moved, each model's its own way
+        moved = [singles[k].bin_widths for k in range(len(GAMMAS))]
+        assert not torch.equal(moved[0], start.bin_widths[0])
+        assert not torch.equal(moved[0], moved[1])
 
 
 def test_train_epoch_is_the_loop_of_train_steps_with_a_generator():

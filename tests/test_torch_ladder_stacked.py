@@ -14,6 +14,8 @@ tests run the stacked kernel and two fp32 decodes on the card and skip
 elsewhere.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax

@@ -4,6 +4,8 @@ package's: the same shapes and the same errors, and the specs of each
 state leaf. The world of processes here is one gloo process (the
 two-process runs are ``tests/test_torch_distributed.py``)."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import socket
 
 import jax

@@ -5,6 +5,8 @@ JAX package's ``ops/metrics.py``. Both are numpy on the host, so the same
 arrays must give the same numbers to the last bit, and the same errors.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import warnings
 
 import numpy

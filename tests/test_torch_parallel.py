@@ -12,6 +12,8 @@ ladder within rtol 1e-6 / atol 1e-7 with
 ``nb_itvs_per_side`` equal (``tests/test_ladder.py``); bit counts equal.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import numpy
 import pytest

@@ -1,6 +1,8 @@
 """PyTorch port: PipelinedCompressor and roundtrip_batched against the
 JAX package's, on the trained models and their coding statistics."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import pickle
 

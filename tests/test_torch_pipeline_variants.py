@@ -2,6 +2,8 @@
 and make_codec_fns against the JAX package's, on the trained model and
 its coding statistics."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import pickle
 

@@ -15,6 +15,8 @@ against the JAX ``training_fct`` of its own state with its own key. Small
 sizes: 32 x 32 crops at batch 2, ``max_itvs=32``, three batches.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy

@@ -15,6 +15,8 @@ within 1e-4 bpp (measured 3.8e-6), PSNR within 0.001 dB (measured
 1.1e-4).
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import hashlib
 import os
 import pickle

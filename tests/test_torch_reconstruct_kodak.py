@@ -10,6 +10,8 @@ within 1 % (equal where no symbol flips), the anchors exactly (the same
 Pillow on the same images), the Bjontegaard savings within 0.5 points.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import pickle
 

@@ -12,6 +12,8 @@ handed to the TF side are the reference package's, name for name and bit
 for bit.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import numpy

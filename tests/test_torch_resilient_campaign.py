@@ -41,6 +41,8 @@ if __name__ == "__main__":
     sys.exit(0)
 
 
+import torch_cpu  # noqa: E402, F401  (first: this process's share of the cores)
+
 import pytest  # noqa: E402
 
 from autoencoder_based_image_compression_tpu_torch.scripts import (  # noqa: E402

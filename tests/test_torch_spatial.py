@@ -8,6 +8,8 @@ the whole image's; round trips within rtol 1e-4, atol 1e-4
 real geometry, within 5e-2 of a pixel level
 (``__graft_entry__.py::dryrun_multichip``)."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import numpy
 import pytest

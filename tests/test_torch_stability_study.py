@@ -8,6 +8,8 @@ a small image stack writes the comparison with the reference script's
 keys, from checkpoints made of the committed trained models.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 import sys

@@ -5,11 +5,13 @@ reads, so one ``train_step`` encodes the batch once with grad and gives
 the density phase the latents detached and the RD loss the same latents.
 These tests hold the step, and the eager epoch, to the composition of the
 two phases that each encode for themselves (``training_fct`` then
-``training_eae_bw``; the ladder's ``training_fct`` then
-``training_eae``) bit for bit, on the CPU at 2 x 32 x 32, with the noise
-given and drawn from a seeded generator. They count the encoder's calls:
-one a step, one a pre-fit step.
+``training_eae_bw``, for one model and for the ladder) bit for bit, on
+the CPU at 2 x 32 x 32, with the noise given and drawn from a seeded
+generator. They count the encoder's calls (``encode_stacked``: one model
+is a stack of one): one a step, one a pre-fit step.
 """
+
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
 
 import numpy
 import pytest
@@ -122,7 +124,7 @@ def _count_calls(monkeypatch, name):
 def test_a_step_encodes_once_and_a_pre_fit_step_once(monkeypatch, learn_bin_widths):
     (state, fns) = _single(learn_bin_widths)
     (batch,) = _batches(3, 1)
-    calls = _count_calls(monkeypatch, "encode")
+    calls = _count_calls(monkeypatch, "encode_stacked")
     fns["train_step"](state, batch, torch.Generator().manual_seed(0))
     assert calls == [True]  # with grad: the RD loss differentiates through it
     del calls[:]
@@ -136,7 +138,7 @@ def test_a_step_encodes_once_and_a_pre_fit_step_once(monkeypatch, learn_bin_widt
 def _ladder():
     start = ladder.init_ladder_state(torch.Generator().manual_seed(1), GAMMAS, max_itvs=MAX_ITVS,
                                      nb_itvs_init=2, device="cpu")
-    return (start, ladder._StackedLadder(GAMMAS, PPI, MAX_ITVS),
+    return (start, tstep.ModelAxisStep(GAMMAS, False, PPI, MAX_ITVS),
             ladder.make_ladder_step_fns(GAMMAS, max_itvs=MAX_ITVS))
 
 
@@ -146,8 +148,8 @@ def _ladder_two_phases(whole):
             (noise_fct, noise_eae) = (noise, noise)
         else:
             (noise_fct, noise_eae) = ([pair[0] for pair in noise], [pair[1] for pair in noise])
-        return whole.training_eae(whole.training_fct(states, batch, noise_fct), batch,
-                                  noise_eae)
+        return whole.training_eae_bw(whole.training_fct(states, batch, noise_fct), batch,
+                                     noise_eae)
     return step
 
 

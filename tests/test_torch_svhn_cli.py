@@ -19,6 +19,8 @@ so drawing per phase would shift every later batch and the test would
 fail. Checkpoints cross in both directions.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import re
 
 import jax

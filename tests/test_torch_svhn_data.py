@@ -3,6 +3,8 @@ choice of ``cli/create_datasets``) against the JAX package's. All of it
 is host code (numpy, scipy): on the same seed and the same ``.mat``
 files both packages must give equal arrays, bit for bit."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import numpy
 import pytest
 import scipy.io

@@ -15,6 +15,8 @@ bits). Small widths as there: 192-32-16, the VAE 192-32-8, ``max_itvs``
 32, batches of 10.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy

@@ -20,6 +20,8 @@ What is compared, and how tightly:
 - the VAE step: the same bounds.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax

@@ -1,6 +1,8 @@
 """PyTorch port: the roofline accounting and the throughput / parity
 measurements against the JAX package's, and the benchmark CLI."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 

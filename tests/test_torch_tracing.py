@@ -9,6 +9,8 @@ capture also launches them as kernels, which only the card runs (the
 that its ``cuda`` test runs where JAX is not installed.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 import pickle
 import re

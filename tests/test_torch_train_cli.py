@@ -9,6 +9,8 @@ statistics layer writes files equal to the JAX package's, byte for
 byte in the arrays (numpy on both sides, same float32 arithmetic).
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 import pickle

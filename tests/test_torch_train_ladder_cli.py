@@ -8,6 +8,8 @@ command line on the same files, and the JAX package (its checkpoint
 loader and its ``cli/reconstruct_kodak``) reads what the port wrote.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import json
 import os
 import re

@@ -5,6 +5,8 @@ compared draw for draw (a JAX key has no PyTorch counterpart), so the
 initialisers are held to the distributions and the counts.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy

@@ -23,6 +23,8 @@ What is compared, and how tightly:
   ``2 * lr = 2e-4`` per entry; measured here, the largest gap is 1.1e-6.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import functools
 
 import jax
@@ -39,6 +41,7 @@ from autoencoder_based_image_compression_tpu.train.checkpoint import _path_keys
 from autoencoder_based_image_compression_tpu.train.state import init_train_state as jax_init
 from autoencoder_based_image_compression_tpu.train.state import make_adam
 from autoencoder_based_image_compression_tpu_torch import constants as csts
+from autoencoder_based_image_compression_tpu_torch.models import conv_eae
 from autoencoder_based_image_compression_tpu_torch.ops import density as dens
 from autoencoder_based_image_compression_tpu_torch.train import step as tstep
 from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
@@ -52,6 +55,7 @@ from autoencoder_based_image_compression_tpu_torch.train.state import (
     current_lr,
     init_train_state,
     learning_rate,
+    map_state,
 )
 
 GAMMA = 10000.0
@@ -159,9 +163,13 @@ def test_rd_gradients_match_jax_grad(learn_bin_widths):
     noise = _t(_noise(key))
     (got_params, got_bw, loss) = tstep.rd_gradients(torch_state, _t(batch), noise, GAMMA,
                                                     learn_bin_widths, PPI, MAX_ITVS)
+    # The model-axis loss at M = 1: the state as a stack of one.
+    stacked = map_state(lambda leaf: leaf.unsqueeze(0), torch_state)
+    visible_units = _t(batch).to(torch.float32)
+    y = conv_eae.encode_stacked(stacked.params, visible_units, learn_bin_widths)
     (_, (got_rec, got_entropy)) = tstep._rd_loss(
-        torch_state.params, torch_state.bin_widths, _t(batch), noise, torch_state.density,
-        GAMMA, learn_bin_widths, PPI, MAX_ITVS)
+        stacked.params, stacked.bin_widths, stacked.density, visible_units, y, [noise],
+        torch.tensor([GAMMA]), learn_bin_widths, PPI, MAX_ITVS)
     # rec_error: a mean of sums over 1,024 squared errors up to 255^2.
     numpy.testing.assert_allclose(float(got_rec), float(rec_error), rtol=1e-5)
     numpy.testing.assert_allclose(float(got_entropy), float(approx_entropy), rtol=1e-5)

@@ -1,6 +1,8 @@
 """PyTorch port: the fp32 transforms and the bf16w+ serving transforms
 against the JAX package's, on the trained weights."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ dead-latent map) hold the same pixels as the JAX package's, bit for bit.
 The matplotlib figures are drawn from the same arrays by the same calls;
 their bytes depend on the renderer, so only their existence is held."""
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import numpy

@@ -5,6 +5,8 @@ Both committed artifacts load through the port's numpy loader and
 match the JAX package's.
 """
 
+import torch_cpu  # noqa: F401  (first: this process's share of the cores)
+
 import os
 
 import jax.numpy as jnp
