@@ -46,7 +46,9 @@ path gave them.
 The library also holds the phase marks of a graphed training step
 (:func:`launch_mark`, placed by ``utils/tracing.py``): one-thread
 kernels, one name a mark, that write the card's global timer into the
-epoch's stamps. They are not counted in ``LAUNCHES``.
+epoch's stamps. They are not counted in ``LAUNCHES``. And it holds
+Adam's kernel, ``csrc/adam.cu``, whose wrapper and counts are
+``ops/kernels/adam_kernel.py``'s.
 """
 
 import collections
@@ -72,6 +74,8 @@ CHANNELS = 128
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _SOURCE = os.path.join(_CSRC_DIR, "gdn.cu")
+# Every source of the library: the GDN kernels and the marks, and Adam's.
+SOURCES = (_SOURCE, os.path.join(_CSRC_DIR, "adam.cu"))
 BUILD_DIR = os.path.join(_CSRC_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libaeic_gdn.so")
 # ptxas register/shared-memory report of the last build.
@@ -122,7 +126,7 @@ def _nvcc():
 
 
 def build_library():
-    """Compiles ``csrc/gdn.cu`` into ``csrc/build/libaeic_gdn.so``.
+    """Compiles :data:`SOURCES` into ``csrc/build/libaeic_gdn.so``.
 
     Builds into a temporary name and renames it into place, so that
     concurrent processes never load a half-written library.
@@ -131,10 +135,10 @@ def build_library():
     (handle, tmp_path) = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(handle)
     try:
-        result = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp_path, _SOURCE],
+        result = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *SOURCES],
                                 capture_output=True, text=True, check=False)
         if result.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{result.stderr}")
+            raise RuntimeError(f"nvcc failed on {', '.join(SOURCES)}:\n{result.stderr}")
         with open(BUILD_LOG, "w") as log:
             log.write(result.stdout + result.stderr)
         os.replace(tmp_path, LIB_PATH)
@@ -149,7 +153,7 @@ def load_library():
     if _lib is not None:
         return _lib
     if (not os.path.isfile(LIB_PATH)
-            or os.path.getmtime(LIB_PATH) < os.path.getmtime(_SOURCE)):
+            or os.path.getmtime(LIB_PATH) < max(map(os.path.getmtime, SOURCES))):
         build_library()
     lib = ctypes.CDLL(LIB_PATH)
     pointers = [ctypes.c_void_p] * 4

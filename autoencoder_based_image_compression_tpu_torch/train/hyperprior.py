@@ -15,11 +15,10 @@ laid end to end in the order of ``models/hyperprior.py::param_shapes``
 (``state.params["all"]``, ``opt.mu["all"]``, ``opt.nu["all"]``);
 :func:`params_of` and :func:`first_moment` give them by name, as views.
 The loss takes the named views of the vector, so the step's gradient
-is one vector too and Adam runs once over it: its arithmetic is
-elementwise, so that is each leaf's update, in about twenty launches
-where leaf by leaf it took some 700, whose launch gaps inside a replay
-were most of the optimizer phase; and a graphed step writes 5 tensors
-back into its buffers.
+is one vector too and Adam updates it as one leaf: its arithmetic is
+elementwise, so that is each leaf's update, in one launch of Adam's
+kernel on the card (``ops/kernels/adam_kernel.py``); and a graphed step
+writes 5 tensors back into its buffers.
 
 The step is ``(state, batch, noise) -> state``, so ``train_epoch =
 epoch_fn(train_step)`` replays one captured step a batch on the card and

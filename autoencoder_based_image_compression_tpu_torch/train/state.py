@@ -10,7 +10,9 @@ Adam is written out as a small functional update over the parameter
 dict, with the reference's arithmetic: bias-corrected moments,
 ``lr * mu_hat / (sqrt(nu_hat) + 1e-8)``, and the learning rate read from
 the piecewise-constant schedule at the count *before* the increment.
-Weight decay is part of the loss, not of Adam.
+Weight decay is part of the loss, not of Adam. On the card its leaves
+move in one launch of a hand-written kernel
+(``ops/kernels/adam_kernel.py``).
 """
 
 from typing import Dict, NamedTuple
@@ -19,15 +21,17 @@ import torch
 
 from autoencoder_based_image_compression_tpu_torch import constants as csts
 from autoencoder_based_image_compression_tpu_torch.models.conv_eae import init_conv_eae_params
+from autoencoder_based_image_compression_tpu_torch.ops.kernels.adam_kernel import (
+    ADAM_B1,
+    ADAM_B2,
+    adam_leaves,
+)
 from autoencoder_based_image_compression_tpu_torch.ops.density import (
     DensityTable,
     init_density_table,
 )
 from autoencoder_based_image_compression_tpu_torch.utils.device import resolve_device
 
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-ADAM_EPS = 1.0e-8
 LR_DECAY = 0.1
 
 
@@ -81,9 +85,16 @@ def state_leaves(state):
 
 def copy_state_into(buffers, state):
     """Copies every leaf of ``state`` into the same leaf of ``buffers``, a
-    state of the same shapes and dtypes, in place (one multi-tensor copy
-    on the device). Returns ``buffers``."""
-    torch._foreach_copy_(state_leaves(buffers), state_leaves(state))
+    state of the same shapes and dtypes, in place: one multi-tensor copy a
+    dtype (on the card a list of mixed dtypes falls back to one copy a
+    leaf). Returns ``buffers``."""
+    by_dtype = {}
+    for (target, source) in zip(state_leaves(buffers), state_leaves(state)):
+        (targets, sources) = by_dtype.setdefault(source.dtype, ([], []))
+        targets.append(target)
+        sources.append(source)
+    for (targets, sources) in by_dtype.values():
+        torch._foreach_copy_(targets, sources)
     return buffers
 
 
@@ -147,35 +158,31 @@ def current_lr(gamma_scaling, step):
 
 
 def adam_apply(grads, opt_state, params, lr):
-    """One Adam step at the learning rate ``lr``, leaf by leaf. Returns
-    ``(new_params, new_opt_state)``.
+    """One Adam step at the learning rate ``lr``. Returns ``(new_params,
+    new_opt_state)``.
 
     ``mu = 0.9 mu + 0.1 g``; ``nu = 0.999 nu + 0.001 g^2``; both divided
     by ``1 - decay^(count + 1)``; the parameters move by
     ``-lr * mu_hat / (sqrt(nu_hat) + 1e-8)``. ``lr`` is a number, a
     scalar tensor, or for M stacked models an ``(M,)`` tensor, each
     applied to its model's slice of every leaf (as are the corrections
-    of an ``(M,)`` count). Every caller goes through this one per-leaf
+    of an ``(M,)`` count). Every caller goes through this one
     arithmetic: the EAE's scheduled rate (:func:`adam_update`) and the
-    hyperprior's constant one (``train/hyperprior.py``).
+    hyperprior's constant one (``train/hyperprior.py``). The count and
+    the corrections are a few small kernels; on the card every leaf of
+    every model then moves in one launch of Adam's kernel, on the CPU
+    through the per-leaf chain of its plain twin, bit for bit the same
+    (``ops/kernels/adam_kernel.py``).
     """
     count_inc = opt_state.count + 1
     correction_1 = 1.0 - ADAM_B1 ** count_inc.to(torch.float32)
     correction_2 = 1.0 - ADAM_B2 ** count_inc.to(torch.float32)
-
-    def per_model(value, leaf):  # (M,) -> (M, 1, ...) against an (M, ...) leaf
-        if not torch.is_tensor(value):
-            return value
-        return value.reshape(value.shape + (1,) * (leaf.dim() - value.dim()))
-
+    names = list(grads)
+    updated = adam_leaves([(params[name], grads[name], opt_state.mu[name], opt_state.nu[name])
+                           for name in names], lr, correction_1, correction_2)
     (new_params, new_mu, new_nu) = ({}, {}, {})
-    for (name, grad) in grads.items():
-        mu = (1 - ADAM_B1) * grad + ADAM_B1 * opt_state.mu[name]
-        nu = (1 - ADAM_B2) * torch.square(grad) + ADAM_B2 * opt_state.nu[name]
-        update = (mu / per_model(correction_1, grad)) / (
-            torch.sqrt(nu / per_model(correction_2, grad)) + ADAM_EPS)
-        new_params[name] = params[name] - per_model(lr, grad) * update
-        (new_mu[name], new_nu[name]) = (mu, nu)
+    for (name, (p, mu, nu)) in zip(names, updated):
+        (new_params[name], new_mu[name], new_nu[name]) = (p, mu, nu)
     return (new_params, AdamState(count=count_inc, mu=new_mu, nu=new_nu))
 
 

@@ -29,7 +29,12 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    its plain twin at every training site's rows, one model and the
    seven-model ladder, each gradient within 1e-4 of its largest entry,
    two calls equal bit for bit, timed replayed and eager beside the twin
-   and three times the forward's bound;
+   and three times the forward's bound; then Adam's kernel
+   (``csrc/adam.cu``) at each training path's leaves (one model's 19 and
+   23, the seven-model ladder's 23 stacked with three rates apart, the
+   hyperprior's one vector at its constant rate) against its plain twin,
+   every output equal bit for bit, one launch a step, timed replayed and
+   eager beside the twin and its bytes bound;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
    synthetic Kodak-shaped images on the trained learned-bin-width model
    and its statistics at multiplier 1, true bitstreams, verified;
@@ -223,7 +228,12 @@ null where it did not).
 A wrapper counts where Python calls it, so a CUDA graph counts at its
 warm-up batch and its capture and not at a replay: the expectations say
 which numbers are per capture (a graphed training epoch: its warm-up
-step and its capture, two steps' launches a capture).
+step and its capture, two steps' launches a capture). Adam's kernel
+counts apart (``adam_kernel.LAUNCHES``, per ``(leaves, models)``): one
+launch a training step in phases 5, 6, 9 (one a shard of the ladder over
+seven shards), 12 and 13, two a capture, none a replay; the kernels line
+ends with its entries, one a ``(leaves, models)`` of each training path,
+their launches as that path's run counted them.
 Any failure exits non-zero; so does a machine without a card. Imports
 nothing of JAX.
 """
@@ -258,6 +268,7 @@ PACKAGE = os.path.join(REPO, "autoencoder_based_image_compression_tpu_torch")
 RESULTS_ROOT = os.path.join(REPO, "results", "eae")
 COMMITTED_RD = os.path.join(RESULTS_ROOT, "kodak_rd")
 KERNEL_SOURCE = "autoencoder_based_image_compression_tpu_torch/csrc/gdn.cu"
+ADAM_SOURCE = "autoencoder_based_image_compression_tpu_torch/csrc/adam.cu"
 TPU_KERNELS = "autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py"
 # The GDN launches of one batch on each serving path: (variant, shape).
 _ALL_BF16 = (("gdn_bf16", "H/4"), ("gdn_bf16", "H/8"), ("igdn_bf16", "H/8"),
@@ -455,14 +466,15 @@ def build_all():
         futures = [pool.submit(gdn_kernel.load_library), pool.submit(native.load_library)]
         for future in futures:
             future.result()
-    print(f"built {KERNEL_SOURCE} and the coder in {time.perf_counter() - t0:.1f} s")
+    print(f"built {KERNEL_SOURCE}, {ADAM_SOURCE} and the coder in "
+          f"{time.perf_counter() - t0:.1f} s")
     # ptxas report: kernel (template arguments as mangled: Li<RM>E, then
     # Lb<inverse>E, Lb<quantise>E), registers, spills.
     with open(gdn_kernel.BUILD_LOG) as log:
         report = log.read()
     for entry in report.split("Compiling entry function '")[1:]:
-        kernel = re.search(r"gdn_(?:bwd_)?(?:f32|bf16)_kernelI\w+?E(?=Ev)|gdn_bwd_reduce_kernel",
-                           entry)
+        kernel = re.search(r"gdn_(?:bwd_)?(?:f32|bf16)_kernelI\w+?E(?=Ev)|gdn_bwd_reduce_kernel"
+                           r"|adam_f32_kernel", entry)
         facts = [line.split(":")[-1].strip() for line in entry.splitlines()
                  if "Used" in line or "spill" in line]
         print(f"  ptxas {kernel.group(0) if kernel else '?'}: " + "; ".join(facts))
@@ -696,6 +708,26 @@ def expect_launches(path, counts, expected):
     print(f"  launches on the {path} path: {got}")
     if got != expected:
         raise AssertionError(f"{path}: launches {got}, expected {expected}")
+
+
+# Adam's launches on each path as expect_adam read them: {path: {(leaves,
+# models): launches}}. The kernels line's adam_f32 entries read theirs here.
+ADAM_LAUNCHES = {}
+
+
+def expect_adam(path, expected):
+    """Adam's kernel launched as ``expected`` says on the path since the
+    last ``adam_kernel.reset_launch_counts()``: ``{(leaves, models):
+    launches}``, empty where no Adam step ran (or only replays). Records
+    the counts in :data:`ADAM_LAUNCHES`."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
+
+    got = dict(ak.LAUNCH_SHAPES)
+    print(f"  adam_f32 launches on the {path} path: {ak.LAUNCHES['adam_f32']} at (leaves, "
+          f"models) {got}")
+    if got != expected or ak.LAUNCHES["adam_f32"] != sum(expected.values()):
+        raise AssertionError(f"{path}: adam_f32 launches {got}, expected {expected}")
+    ADAM_LAUNCHES[path] = got
 
 
 def phase_serving(kernel_results):
@@ -1341,6 +1373,125 @@ def phase_gradient(kernel_results):
             del x, grad_out
 
 
+def adam_cases():
+    """``{path: (leaves, lr, correction_1, correction_2)}`` of one Adam
+    step on the card, as each training path's step hands them to
+    ``adam_kernel.adam_leaves``: one model's 19 (learned bin widths) and 23
+    (fixed) leaves with a leading axis of 1, the seven-model ladder's 23
+    stacked leaves with counts on both sides of the models' rate
+    boundaries (three rates apart), the hyperprior's one vector at its
+    constant rate. Gradients and moments drawn at a trained model's scale."""
+    from autoencoder_based_image_compression_tpu_torch import constants as csts
+    from autoencoder_based_image_compression_tpu_torch.cli.train_ladder import GAMMAS_DEFAULT
+    from autoencoder_based_image_compression_tpu_torch.models.conv_eae import (
+        init_conv_eae_params,
+    )
+    from autoencoder_based_image_compression_tpu_torch.train import hyperprior as hp
+    from autoencoder_based_image_compression_tpu_torch.train.state import (
+        ADAM_B1,
+        ADAM_B2,
+        ladder_boundaries,
+        learning_rate,
+    )
+
+    generator = torch.Generator(DEVICE).manual_seed(90)
+
+    def leaves(shapes):
+        def draw(shape, scale):
+            return scale * torch.randn(shape, device=DEVICE, generator=generator)
+        return [(draw(shape, 0.05), draw(shape, 1e-3), draw(shape, 1e-4), draw(shape, 1e-7).abs())
+                for shape in shapes]
+
+    def step(shapes, count, gammas=None):
+        count_inc = (count + 1).to(torch.float32)
+        lr = (hp.LR if gammas is None
+              else learning_rate(ladder_boundaries(gammas, DEVICE), count))
+        return (leaves(shapes), lr, 1.0 - ADAM_B1 ** count_inc, 1.0 - ADAM_B2 ** count_inc)
+
+    def shapes(learn_bin_widths, models):
+        params = init_conv_eae_params(torch.Generator().manual_seed(0), learn_bin_widths)
+        return [(models,) + tuple(value.shape) for value in params.values()]
+
+    ladder_counts = [(0, 5, first - 1, first, second - 1, second, second + 7)[m]
+                     for (m, (first, second)) in enumerate(csts.lr_boundaries(gamma)
+                                                           for gamma in GAMMAS_DEFAULT)]
+    one = torch.tensor([3], dtype=torch.int32, device=DEVICE)
+    return {
+        "training, learned bin widths": step(shapes(True, 1), one, [TRAIN_GAMMA]),
+        "training, fixed bin widths": step(shapes(False, 1), one, [TRAIN_GAMMA]),
+        "ladder training": step(shapes(False, STACKED_MODELS),
+                                torch.tensor(ladder_counts, dtype=torch.int32, device=DEVICE),
+                                GAMMAS_DEFAULT),
+        "hyperprior training": step([(hp.SIZE,)], torch.tensor(4, dtype=torch.int32,
+                                                               device=DEVICE)),
+    }
+
+
+def phase_adam():
+    """Adam's kernel (``csrc/adam.cu``) at each training path's leaves:
+    every output equal to its plain twin's (``adam_leaves_plain``, the
+    per-leaf chain) bit for bit, one launch counted at ``(leaves,
+    models)``, two calls equal; timed replayed in a CUDA graph and eager
+    beside the twin and its bound, 28 bytes an element (read p, g, mu, nu;
+    write p, mu, nu) over the HBM rate. Returns the times, ``{(leaves,
+    models): result}``."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
+
+    results = {}
+    for (path, (leaves, *values)) in adam_cases().items():
+        models = next((v.shape[0] for v in values if torch.is_tensor(v) and v.dim()), 1)
+        ak.reset_launch_counts()
+        got = ak.adam_leaves(leaves, *values)
+        torch.cuda.synchronize()
+        expect_adam(f"Adam's kernel, {path}", {(len(leaves), models): 1})
+        again = ak.adam_leaves(leaves, *values)
+        plain = ak.adam_leaves_plain(leaves, *values)
+        torch.cuda.synchronize()
+        for (index, (outputs, outputs_again, expected)) in enumerate(zip(got, again, plain)):
+            for (name, a, b, c) in zip(("p", "mu", "nu"), outputs, outputs_again, expected):
+                if not (torch.equal(a, c) and torch.equal(a, b)):
+                    raise AssertionError(f"adam_f32, {path}: leaf {index}'s {name} is not the "
+                                         "plain chain's bit for bit, or two calls differ")
+        del got, again, plain
+        elements = sum(leaf[0].numel() for leaf in leaves)
+        copies = TIMING_FOOTPRINT_BYTES // (28 * elements)
+        inputs = [leaves] + [[tuple(t.clone() for t in leaf) for leaf in leaves]
+                             for _ in range(copies)]
+        (ms, ms_eager) = time_ms(lambda leaf_set: ak.adam_leaves(leaf_set, *values), inputs)
+        (plain_ms, _) = time_ms(lambda leaf_set: ak.adam_leaves_plain(leaf_set, *values), inputs)
+        del inputs
+        bound_ms = 1e3 * 28 * elements / PEAK_BYTES_PER_S
+        print(f"  adam_f32 {path}: {len(leaves)} leaves x {models} models, {elements} elements, "
+              f"every output equal to the plain chain's bit for bit; kernel {ms:.4f} ms "
+              f"replayed, {ms_eager:.4f} ms eager, plain chain {plain_ms:.4f} ms, bound "
+              f"{1e3 * bound_ms:.2f} us (bytes), share of bound {100 * bound_ms / ms:.0f} %")
+        results[(len(leaves), models)] = {"ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
+                                          "bound_ms": bound_ms, "elements": elements}
+    return results
+
+
+def adam_entries(paths, adam_results):
+    """The kernels line's ``adam_f32`` entries: one for each ``(leaves,
+    models)`` that Adam's kernel launched at on each of ``paths``, with
+    its launches there as :func:`expect_adam` read them after the path's
+    run, and phase 2's times at those leaves."""
+    entries = []
+    for path in paths:
+        launched = ADAM_LAUNCHES.get(path)
+        if not launched:
+            raise AssertionError(f"adam_f32 never launched on the {path} path")
+        for ((leaves, models), launches) in launched.items():
+            result = adam_results[(leaves, models)]
+            entries.append({
+                "name": "adam_f32", "route": "cuda", "source": ADAM_SOURCE, "replaces": None,
+                "launches": launches, "max_abs_err": 0.0, "ms": result["ms"],
+                "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
+                "bound_ms": result["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                "path": path, "leaves": leaves, "models": models,
+                "elements": result["elements"]})
+    return entries
+
+
 def asymmetric_gdn_inputs(rows, seed):
     """``(x, gamma, beta)`` on the card: ``x`` as :func:`kernel_inputs`
     draws it, ``gamma`` in the kernel's ``[k][c]`` layout with ``0.1`` on
@@ -1372,6 +1523,7 @@ def phase_hyperprior(kernel_results):
     a step at those rows and as many backwards, and marks every phase; a
     replay counts none; one eager ``train_step`` launches 3 + 3 and 3 + 3
     backwards. Returns the path's launches."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train import hyperprior as hp
@@ -1446,10 +1598,13 @@ def phase_hyperprior(kernel_results):
     site_rows = {ROWS[shape]: GRAPH_PREP_STEPS for shape in HYPERPRIOR_SHAPES}
     captures = len(epoch_graph.CAPTURES)
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     state = fns["train_epoch"](state, dataset, rows, noise)
     torch.cuda.synchronize()
     expect_launches("hyperprior graphed epoch, its capture", dict(gk.LAUNCHES),
                     {name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})
+    # Adam: one launch a step over the one vector.
+    expect_adam("hyperprior graphed epoch, its capture", {(1, 1): GRAPH_PREP_STEPS})
     for name in per_step:
         seen = {n: count for ((variant, n), count) in gk.LAUNCH_ROWS.items() if variant == name}
         print(f"  {name} rows in the capture: {seen}")
@@ -1465,20 +1620,24 @@ def phase_hyperprior(kernel_results):
     if tuple(marks) != expected_marks:
         raise AssertionError(f"hyperprior capture marks {marks}")
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     state = fns["train_epoch"](state, dataset, rows, noise)
     torch.cuda.synchronize()
     expect_launches("hyperprior graphed epoch, a replay (no Python call, so no count)",
                     dict(gk.LAUNCHES), {})
+    expect_adam("hyperprior graphed epoch, a replay", {})
     steps = 2 * HYPERPRIOR_STEPS
     if int(state.step) != steps or not bool(torch.isfinite(state.params["all"]).all()):
         raise AssertionError(f"hyperprior: step {int(state.step)}, expected {steps}, "
                              "or parameters not finite")
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     batch = dataset[torch.as_tensor(rows[0], device=DEVICE)]
     fns["train_step"](state, batch, noise)
     torch.cuda.synchronize()
     launches = dict(gk.LAUNCHES)
     expect_launches("one hyperprior train_step", launches, per_step)
+    expect_adam("one hyperprior train_step", {(1, 1): 1})
     phases = fns["train_epoch"].phase_ms()
     print("  hyperprior graphed step, ms by phase: " + ", ".join(
         f"{name} {ms:.3f}" for (name, ms) in phases.items()))
@@ -1707,6 +1866,7 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
     the one step instead of ``ONE_STEP_GAP`` (raising outside its bound)
     and returns its bound's name. Returns ``(graphed ms a step, eager ms
     a step)``."""
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
     from autoencoder_based_image_compression_tpu_torch.train.state import (
@@ -1790,10 +1950,12 @@ def hold_graphed_epoch(tag, fns, state, dataset, step_noise, draws_equal, eager_
         raise AssertionError(f"{tag}: the next graphed epoch moved the state returned before")
     torch.cuda.synchronize()
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     epoch(state, dataset, rows, noise(GRAPHED_STEPS))
     torch.cuda.synchronize()
     expect_launches(f"graphed epoch ({GRAPHED_STEPS} replays, no capture), {tag}",
                     dict(gk.LAUNCHES), {})
+    expect_adam(f"graphed epoch ({GRAPHED_STEPS} replays, no capture), {tag}", {})
 
     # Times: CUDA events round one epoch of GRAPHED_STEPS steps, median of 5.
     eager_ms = _median_ms(lambda: eager_epoch(state, dataset, rows, noise(GRAPHED_STEPS)),
@@ -1822,6 +1984,7 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     from autoencoder_based_image_compression_tpu_torch.data.synthetic import (
         synthetic_luminance_stack,
     )
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.ops.metrics import psnr_2d
     from autoencoder_based_image_compression_tpu_torch.parallel.inference import (
@@ -1861,10 +2024,12 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
     # The pre-fit epoch: the replays of one captured training_fct, which
     # encodes once a step (counted at its warm-up step and its capture).
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     state = loop.preliminary_fitting(dataset, state, fns, TRAIN_BATCH, 1, noise)
     prefit_launches = dict(gk.LAUNCHES)
     expect_launches(f"pre-fit, {tag} ({nb_batches} batches, one capture)", prefit_launches,
                     {"gdn_f32_stacked": GRAPH_PREP_STEPS * gdn_encode})
+    expect_adam(f"pre-fit, {tag}", {})
     gk.reset_launch_counts()
     (density_1, rd_1, _) = indicators(state)
     shuffle = numpy.random.default_rng(3)
@@ -1887,6 +2052,10 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         "gdn_f32": 2 * gdn_encode, "igdn_f32": 2 * per_step["igdn_f32_stacked"],
         **{name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()},
         **backward_of({name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})})
+    # Adam: one launch a step over the model's leaves (a stack of one),
+    # counted at the capture's two steps.
+    adam_shape = (len(state.params), 1)
+    expect_adam(f"training, {tag}", {adam_shape: GRAPH_PREP_STEPS})
     print(f"  training, {tag}: density loss {density_0:.6f} -> {density_1:.6f} over the "
           f"pre-fit ({nb_batches} steps); rate-distortion loss {rd_1:.6e} -> {rd_2:.6e} over "
           f"{steps} train_steps (before the pre-fit {rd_0:.6e}); rec error "
@@ -1905,9 +2074,11 @@ def phase_training(kernel_results, learn_bin_widths, draws_equal):
         raise AssertionError("TF32 is on: the training path must run true fp32")
 
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     fns["train_step"](state, eval_batch, noise)
     expect_launches(f"one train_step, {tag}", dict(gk.LAUNCHES),
                     {**per_step, **backward_of(per_step)})
+    expect_adam(f"one train_step, {tag}", {adam_shape: 1})
 
     # Times: CUDA events round one call, median of 9.
     step_ms = _median_ms(lambda: fns["train_step"](state, eval_batch, noise), 1, 9)
@@ -2004,6 +2175,7 @@ def phase_ladder(draws_equal):
     )
     from autoencoder_based_image_compression_tpu_torch.eval import ladder_probe
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.train import checkpoint, ladder, loop
     from autoencoder_based_image_compression_tpu_torch.train.epoch_graph import rows_in_order
@@ -2050,8 +2222,11 @@ def phase_ladder(draws_equal):
     expect_launches(f"ladder pre-fit ({nb_batches} batches, one capture)", prefit_launches,
                     {"gdn_f32_stacked": 3 * GRAPH_PREP_STEPS})
     fitted = indicators(prefit)
+    # Adam: one launch a ladder step over the 23 stacked leaves of the seven models.
+    adam_shape = (len(start.params), nb_models)
 
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     with tempfile.TemporaryDirectory() as root:
         (path_training, path_validation) = (os.path.join(root, "training.npy"),
                                             os.path.join(root, "validation.npy"))
@@ -2079,6 +2254,8 @@ def phase_ladder(draws_equal):
 
         (_, printed) = _run_printing(train_ladder.main, cli_args(0))
         part_launches = dict(gk.LAUNCHES)
+        expect_adam("ladder training (part 0, the epoch's capture)",
+                    {adam_shape: GRAPH_PREP_STEPS})
         trained = load_part(1)
         try:
             train_ladder.main(cli_args(0))
@@ -2128,10 +2305,12 @@ def phase_ladder(draws_equal):
 
     noise = torch.Generator(DEVICE).manual_seed(2)
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     fns["train_step"](trained, eval_batch, noise)
     expect_launches("one ladder train_step", dict(gk.LAUNCHES),
                     {"gdn_f32_stacked": 3, "igdn_f32_stacked": 3,
                      **backward_of({"gdn_f32_stacked": 3, "igdn_f32_stacked": 3})})
+    expect_adam("one ladder train_step", {adam_shape: 1})
 
     # Model k of the stacked ladder against a single-model run from the
     # same start on the same batches and noise: one step at the JAX
@@ -2252,6 +2431,26 @@ def _campaign_launches(args, one_model=False):
             if idx_part == 0:
                 launches["gdn_f32" + stepped] += sites * GRAPH_PREP_STEPS
     return dict(launches)
+
+
+def _campaign_adam(args, experiments, one_model=False):
+    """Adam's launches of the campaign's training stage, ``{(leaves,
+    models): launches}``: each part's epochs replay one captured step a
+    model (the ladder's models one stacked step), counted at its warm-up
+    and its capture; a pre-fit steps no Adam. ``one_model``: one fixed
+    model's last part, trained alone as a stack of one."""
+    from autoencoder_based_image_compression_tpu_torch.models.conv_eae import (
+        init_conv_eae_params,
+    )
+
+    def leaves(learn_bin_widths):
+        return len(init_conv_eae_params(torch.Generator().manual_seed(0), learn_bin_widths))
+
+    if one_model:
+        return {(leaves(False), 1): GRAPH_PREP_STEPS}
+    ladder = sum(not learned for (_, _, learned) in experiments)
+    return {(leaves(False), ladder): args.nb_parts * GRAPH_PREP_STEPS,
+            (leaves(True), 1): args.nb_parts * GRAPH_PREP_STEPS}
 
 
 def _study_launches(nb_images, families):
@@ -2576,6 +2775,7 @@ def phase_distributed(card, draws_equal):
         synthetic_kodak,
         synthetic_luminance_stack,
     )
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.parallel import distributed
     from autoencoder_based_image_compression_tpu_torch.parallel import spatial as bands_mod
@@ -2633,9 +2833,12 @@ def phase_distributed(card, draws_equal):
             for (batch, noise) in zip(batches, noises):
                 sharded_batch = distributed.global_batch(batch, mesh)
                 gk.reset_launch_counts()
+                ak.reset_launch_counts()
                 got = fns["train_step"](distributed.global_state(current, mesh), sharded_batch,
                                         noise)
                 launches.update({k: v for (k, v) in gk.LAUNCHES.items() if v})
+                # Adam: one launch a sharded step over the replicated leaves.
+                expect_adam(f"one sharded train_step, {tag}", {(len(current.params), 1): 1})
                 rows_seen.update(gk.LAUNCH_ROWS)
                 (grads, grads_bw, loss) = fns["rd_gradients"](current, sharded_batch, noise[1])
                 (plain, plain_bw, plain_loss) = rd_gradients(
@@ -2775,8 +2978,11 @@ def phase_distributed(card, draws_equal):
     plain = fns["train_step"](states, batch, noises)
     seven = make_mesh(1, devices=[DEVICE] * len(gammas))
     gk.reset_launch_counts()
+    ak.reset_launch_counts()
     sharded = fns["train_step"](ladder.shard_ladder_state(states, seven), batch, noises)
     record("ladder over seven shards")
+    # Adam: one launch a shard, each a stacked ladder of one model.
+    expect_adam("ladder over seven shards", {(len(states.params), 1): len(gammas)})
     # Each shard is a stacked ladder of one model: its step's six GDN sites
     # (one encode, one decode) one stacked launch each.
     expect_launches("ladder over seven shards", paths["ladder over seven shards"],
@@ -3285,6 +3491,7 @@ def phase_campaign(card):
     )
     from autoencoder_based_image_compression_tpu_torch.eval import reference_parity
     from autoencoder_based_image_compression_tpu_torch.models import conv_eae
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
     from autoencoder_based_image_compression_tpu_torch.ops.quantization import quantize_per_map
     from autoencoder_based_image_compression_tpu_torch.scripts import (
@@ -3343,15 +3550,19 @@ def phase_campaign(card):
               + ("main(), as a user calls it" if route == "main" else
                  "the stages in main()'s order (no matplotlib to draw the figures)"))
 
-        def campaign(label, training_expected, statistics_expected, evaluation_expected):
-            """One call of the campaign; returns ``(part seconds, study)``."""
+        def campaign(label, training_expected, statistics_expected, evaluation_expected,
+                     adam_expected):
+            """One call of the campaign, its training's Adam launches held
+            to ``adam_expected``; returns ``(part seconds, study)``."""
             stage_s = {}
             captured = len(epoch_graph.CAPTURES)
+            ak.reset_launch_counts()
             if route == "main":
                 gk.reset_launch_counts()
                 t0 = time.perf_counter()
                 (_, printed) = _run_printing(rd_campaign.main, argv, keep)
                 stage_s["main"] = time.perf_counter() - t0
+                expect_adam(label, adam_expected)
                 expected = collections.Counter(training_expected)
                 expected.update(statistics_expected)
                 expected.update(evaluation_expected)
@@ -3382,6 +3593,7 @@ def phase_campaign(card):
                 part_s = quiet(rd_campaign.train_parts, args, data)
                 stage_s["training"] = time.perf_counter() - t0
                 record(f"{label}: training", training_expected, TRAINING_ENTRIES)
+                expect_adam(label, adam_expected)
                 gk.reset_launch_counts()
                 t0 = time.perf_counter()
                 for experiment in (rd_campaign.LEARNED, (1.0, 10000.0, False)):
@@ -3420,7 +3632,8 @@ def phase_campaign(card):
                                           (2, len(reconstruct_kodak.MULTIPLIERS))])
         extra_batches = args.nb_extra // 20  # collect_stats' batch
         (part_s, study) = campaign("campaign", _campaign_launches(args),
-                                   {"gdn_f32": 5 * extra_batches}, full)
+                                   {"gdn_f32": 5 * extra_batches}, full,
+                                   _campaign_adam(args, experiments))
         steps = [_part_steps(results_root, idx, experiments)
                  for idx in range(1, args.nb_parts + 1)]
         if not all(steps[-1][s] > steps[-2][s] for s in steps[-1]):
@@ -3460,7 +3673,7 @@ def phase_campaign(card):
         none = {"gdn_f32": 0, "igdn_f32": 0}
         mtimes = {path: os.path.getmtime(path) for path in glob.glob(
             os.path.join(results_root, "*", "*", "model_*"))}
-        (again_s, again) = campaign("campaign again", none, {}, none)
+        (again_s, again) = campaign("campaign again", none, {}, none, {})
         if again_s or any(os.path.getmtime(path) != mtime for (path, mtime) in mtimes.items()):
             raise AssertionError(f"the second call trained {sorted(again_s)}")
         if not all(numpy.array_equal(a, b) for label in families
@@ -3478,7 +3691,8 @@ def phase_campaign(card):
         mtimes = {path: os.path.getmtime(path) for path in glob.glob(
             os.path.join(results_root, "*", "*", "model_*"))}
         (third_s, _) = campaign("campaign retraining one model",
-                                _campaign_launches(args, one_model=True), {}, none)
+                                _campaign_launches(args, one_model=True), {}, none,
+                                _campaign_adam(args, experiments, one_model=True))
         moved = sorted(path for (path, mtime) in mtimes.items()
                        if not os.path.isfile(path) or os.path.getmtime(path) != mtime)
         if moved != [retrained + ".json", retrained + ".npz"] or list(third_s) != [
@@ -3693,6 +3907,7 @@ def main():
     kernel_results = phase_kernels()
     kernel_results.update(phase_stacked_kernels())
     phase_gradient(kernel_results)
+    adam_results = phase_adam()
     print("phase 3: serving (PipelinedCompressor)")
     (path_launches, pipeline_table, psnrs_fp32) = phase_serving(kernel_results)
     print("phase 4: fixed-bin-width roundtrip_batched")
@@ -3811,7 +4026,16 @@ def main():
     # batch's, the parity harness at two 64 x 64 images'.
     on_path += campaign_entries
     on_path += HYPERPRIOR_ON_PATH
-    kernels = kernel_entries(on_path, path_launches, kernel_results)
+    # Adam's kernel on each training path, its launches as the path's run
+    # counted them: one train_step (phases 5, 6, 13), a sharded step and
+    # the ladder over seven shards (phase 9), the campaign's training
+    # (phase 12).
+    adam_paths = [f"one train_step, {tag} bin widths" for tag in ("learned", "fixed")]
+    adam_paths += ["one ladder train_step", "one hyperprior train_step"]
+    adam_paths += [f"one sharded train_step, {tag} bin widths" for tag in ("learned", "fixed")]
+    adam_paths += ["ladder over seven shards", "campaign", "campaign retraining one model"]
+    kernels = (kernel_entries(on_path, path_launches, kernel_results)
+               + adam_entries(adam_paths, adam_results))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -187,6 +187,28 @@ def test_flat_view_copies_in_place_and_clones_apart():
 
 
 @MODELS
+def test_the_copy_back_is_one_multi_tensor_copy_a_dtype(model, monkeypatch):
+    """On the card ``torch._foreach_copy_`` takes its fused path only for
+    sources of one dtype, and copies leaf by leaf otherwise: the state's
+    int32 counts go apart from its fp32 leaves."""
+    (state, _) = _model(model)
+    calls = []
+    copy = torch._foreach_copy_
+
+    def spy(targets, sources):
+        calls.append({source.dtype for source in sources})
+        return copy(targets, sources)
+
+    monkeypatch.setattr(torch, "_foreach_copy_", spy)
+    buffers = clone_state(state)
+    copy_state_into(buffers, state)
+    dtypes = {leaf.dtype for leaf in state_leaves(state)}
+    assert sorted(map(str, dtypes)) == ["torch.float32", "torch.int32"]
+    assert len(calls) == len(dtypes) and all(len(seen) == 1 for seen in calls)
+    _assert_states_equal(buffers, state)
+
+
+@MODELS
 def test_train_epoch_on_a_cpu_state_is_the_eager_loop(model, monkeypatch):
     def refuse(*args):
         raise AssertionError("a CPU state reached the graphed epoch")
