@@ -1,9 +1,13 @@
 """Trains Ballé et al.'s scale hyperprior (ICLR 2018, N = 128, M = 192)
-on RGB crops.
+or Minnen et al.'s joint autoregressive and hierarchical prior (NeurIPS
+2018, N = M = 192) on RGB crops.
 
-``python -m ...cli.train_hyperprior [--lmbda 0.01] [--path_to_training_data
-crops.npy | --nb_synthetic 1200] [--nb_epochs 1] [--batch_size 8]
-[--results_root results/hyperprior] [--device cuda|cpu]``: the crops are
+``python -m ...cli.train_hyperprior [--model hyperprior|minnen2018]
+[--lmbda 0.01 | 0.013] [--path_to_training_data crops.npy | --nb_synthetic
+1200] [--nb_epochs 1] [--batch_size 8] [--results_root
+results/<model>] [--device cuda|cpu]``: ``--model`` names the model
+(``train/hyperprior.py::MODELS``; the hyperprior by default), whose own
+lambda is the default (0.01 and 0.013). The crops are
 a uint8 ``(N, H, W, 3)`` ``.npy`` (H and W multiples of 64), or seeded
 synthetic crops (three synthetic luminance images stacked as the
 channels). Each epoch is ``train/loop.py::run_epoch_training`` over the
@@ -32,7 +36,7 @@ from autoencoder_based_image_compression_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from autoencoder_based_image_compression_tpu_torch.train.hyperprior import (
-    LMBDA,
+    MODELS,
     init_hyperprior_state,
     make_hyperprior_step_fns,
 )
@@ -51,9 +55,12 @@ from autoencoder_based_image_compression_tpu_torch.utils.parsing import (
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description="Trains the scale-hyperprior codec.")
-    parser.add_argument("--lmbda", type=float_strictly_positive, default=LMBDA,
-                        help="rate-distortion weight: loss = bpp + lmbda * 255^2 * mse")
+    parser = argparse.ArgumentParser(description="Trains the scale-hyperprior codec or "
+                                                 "Minnen et al.'s joint prior codec.")
+    parser.add_argument("--model", choices=sorted(MODELS), default="hyperprior")
+    parser.add_argument("--lmbda", type=float_strictly_positive, default=None,
+                        help="rate-distortion weight: loss = bpp + lmbda * 255^2 * mse "
+                             "(default: the model's, 0.01 or 0.013)")
     parser.add_argument("--path_to_training_data", default=None,
                         help="uint8 (N, H, W, 3) .npy of crops; synthetic crops without it")
     parser.add_argument("--nb_synthetic", type=int_strictly_positive, default=1200)
@@ -61,7 +68,8 @@ def build_parser():
                         help="side of the synthetic crops")
     parser.add_argument("--nb_epochs", type=int_strictly_positive, default=1)
     parser.add_argument("--batch_size", type=int_strictly_positive, default=8)
-    parser.add_argument("--results_root", default="results/hyperprior")
+    parser.add_argument("--results_root", default=None,
+                        help="where the checkpoint goes (default: results/<model>)")
     parser.add_argument("--seed", type=int_positive, default=0)
     parser.add_argument("--device", default="cuda")
     return parser
@@ -88,17 +96,20 @@ def load_crops(args):
 
 def main(args=None):
     args = build_parser().parse_args(args)
+    (model, _, default_lmbda) = MODELS[args.model]
+    lmbda = default_lmbda if args.lmbda is None else args.lmbda
+    results_root = args.results_root or os.path.join("results", args.model)
     device = resolve_device(args.device)
     crops = load_crops(args)
     nb_batches = crops.shape[0] // args.batch_size
     if nb_batches == 0:
         raise ValueError(f"{crops.shape[0]} crops make no batch of {args.batch_size}.")
-    path = os.path.join(args.results_root, f"lambda_{float_to_str(args.lmbda)}", "model")
+    path = os.path.join(results_root, f"lambda_{float_to_str(lmbda)}", "model")
 
     if checkpoint_exists(path):
         raise RuntimeError(f"{path}.npz already exists; refusing to overwrite a checkpoint.")
-    state = init_hyperprior_state(torch.Generator().manual_seed(args.seed), device)
-    step_fns = make_hyperprior_step_fns(args.lmbda)
+    state = init_hyperprior_state(torch.Generator().manual_seed(args.seed), device, model)
+    step_fns = make_hyperprior_step_fns(lmbda, model)
     noise = torch.Generator(device=device).manual_seed(args.seed + 1)
     shuffle = numpy.random.default_rng(args.seed + 1)
     dataset = device_resident_dataset(crops, device)

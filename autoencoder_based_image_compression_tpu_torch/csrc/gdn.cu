@@ -2,15 +2,16 @@
 //
 // Replaces the two Pallas TPU kernels of the reference package,
 // autoencoder_based_image_compression_tpu/ops/pallas/gdn_kernel.py:
-//   _gdn_kernel           (entry gdn_pallas_2d)          -> gdn_f32_kernel<RM, inverse, false>
+//   _gdn_kernel           (entry gdn_pallas_2d)          -> gdn_f32_kernel<C, RM, inverse, false>
 //                                                           gdn_bf16_kernel<inverse>
-//       with a model axis (the JAX ladder's vmap of it)     -> gdn_f32_kernel<RM, inverse, false, true>
-//   _gdn_quantize_kernel  (entry gdn_quantize_pallas_2d) -> gdn_f32_kernel<RM, inverse, true>
+//       with a model axis (the JAX ladder's vmap of it)     -> gdn_f32_kernel<128, RM, inverse, false, true>
+//   _gdn_quantize_kernel  (entry gdn_quantize_pallas_2d) -> gdn_f32_kernel<128, RM, inverse, true>
 // and adds the fp32 gradient, which replaces no TPU kernel (below):
-//                                                        gdn_bwd_f32_kernel<RM, inverse>
-//                                                        gdn_bwd_reduce_kernel
+//                                                        gdn_bwd_f32_kernel<C, RM, inverse>
+//                                                        gdn_bwd_reduce_kernel<C>
 //
-// Per row of a (rows, 128) channels-last matrix:
+// Per row of a (rows, C) channels-last matrix, C = 128 (every kernel) or
+// 192 (the fp32 forward and its gradient, single model only):
 //   pool_c = sum_k (x_k * x_k) * gamma[k, c] + beta_c
 //   y_c    = x_c / sqrt(pool_c)  (GDN)   or   x_c * sqrt(pool_c)  (IGDN)
 //   out_c  = y_c, or bw_c * rint(y_c / bw_c) with the quantiser.
@@ -31,6 +32,16 @@
 // - fused quantiser: same as fp32; at the bottleneck's row count (6,144 for a
 //   4 x 512 x 768 batch) its bound is below the cost of a launch, and the
 //   prologue (64 KB of gamma a block) decides its time.
+//
+// The channel count C is the first template argument of the fp32 forward
+// and of the gradient pair. Every design below was laid out in quads of 64
+// channels (a lane owns 4 channels in each), so C = 192 is three quads
+// where 128 is two, and only the tile heights change with it: gamma takes
+// C^2 floats of shared memory (64 KB at 128, 144 KB at 192), and the
+// staged tiles have to fit beside it in the 227 KB of a block (see
+// launch_f32_tiled and bwd_launcher). The 128-channel code is what it was:
+// where the arithmetic of an index needs C to be a power of two, C = 128
+// keeps its shift and mask and 192 takes a division (if constexpr).
 //
 // Design, fp32 (gdn_f32_kernel): a register-tiled SGEMM with the square as
 // its prologue and beta, sqrt, the scaling (and the quantiser) as its
@@ -124,7 +135,7 @@
 
 namespace {
 
-constexpr int kChannels = 128;
+constexpr int kChannels = 128;  // the bf16 kernel's, and the default
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -145,22 +156,34 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------- fp32 ----
 
-constexpr int kXStride = kChannels + 4;  // words a staged fp32 row takes
-// A lane owns kQuads groups of 4 channels, kQuadStep apart, in RM rows.
-constexpr int kQuads = 2;
-constexpr int kQuadStep = kChannels / kQuads;
+// A lane owns Quads<C> groups of 4 channels, kQuadStep apart, in RM rows.
+constexpr int kQuadStep = 64;
 constexpr int kLanesX = kQuadStep / 4;  // lanes across the channels
 constexpr int kLanesY = 32 / kLanesX;   // lanes across the rows
+template <int C>
+constexpr int Quads = C / kQuadStep;
+template <int C>
+constexpr int XStride = C + 4;  // words a staged fp32 row takes
 
+template <int C>
 constexpr int f32_smem_bytes(int warp_rows) {
-  return (kChannels * kChannels + kWarps * 2 * warp_rows * kXStride) *
-         static_cast<int>(sizeof(float));
+  return (C * C + kWarps * 2 * warp_rows * XStride<C>) * static_cast<int>(sizeof(float));
 }
 
-__device__ __forceinline__ void fma_row(float (&acc)[4 * kQuads], float s,
-                                        const float4 (&g)[kQuads]) {
+// The k four steps after k, wrapping round to 0 at C.
+template <int C>
+__device__ __forceinline__ int next_k(int k) {
+  if constexpr ((C & (C - 1)) == 0) {
+    return (k + 4) & (C - 1);
+  } else {
+    return k + 4 < C ? k + 4 : 0;
+  }
+}
+
+template <int Q>
+__device__ __forceinline__ void fma_row(float (&acc)[4 * Q], float s, const float4 (&g)[Q]) {
 #pragma unroll
-  for (int q = 0; q < kQuads; ++q) {
+  for (int q = 0; q < Q; ++q) {
     acc[4 * q + 0] = fmaf(s, g[q].x, acc[4 * q + 0]);
     acc[4 * q + 1] = fmaf(s, g[q].y, acc[4 * q + 1]);
     acc[4 * q + 2] = fmaf(s, g[q].z, acc[4 * q + 2]);
@@ -168,9 +191,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[4 * kQuads], float s,
   }
 }
 
-__device__ __forceinline__ void load_gamma(float4 (&g)[kQuads], const float* row) {
+template <int Q>
+__device__ __forceinline__ void load_gamma(float4 (&g)[Q], const float* row) {
 #pragma unroll
-  for (int q = 0; q < kQuads; ++q) {
+  for (int q = 0; q < Q; ++q) {
     g[q] = *reinterpret_cast<const float4*>(row + q * kQuadStep);
   }
 }
@@ -199,19 +223,21 @@ __device__ __forceinline__ float finish(float x, float pool, float bw) {
   return y;
 }
 
-template <int RM, bool kInverse, bool kQuantize, bool kStacked = false>
+template <int C, int RM, bool kInverse, bool kQuantize, bool kStacked = false>
 __global__ void __launch_bounds__(kThreads, RM <= 2 ? 2 : 1)
 gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ bin_widths,
                float* __restrict__ out, int64_t rows) {
+  constexpr int kQuads = Quads<C>;
+  constexpr int kXStride = XStride<C>;
   constexpr int kWarpRows = kLanesY * RM;  // rows of one warp's tile
-  // Floats between two rows: one model's 128 channels, or all M models'.
-  const int64_t row_stride = kStacked ? static_cast<int64_t>(gridDim.y) * kChannels : kChannels;
+  // Floats between two rows: one model's C channels, or all M models'.
+  const int64_t row_stride = kStacked ? static_cast<int64_t>(gridDim.y) * C : C;
   if (kStacked) {  // this block's model
-    x += static_cast<int64_t>(blockIdx.y) * kChannels;
-    out += static_cast<int64_t>(blockIdx.y) * kChannels;
-    gamma += static_cast<int64_t>(blockIdx.y) * kChannels * kChannels;
-    beta += static_cast<int64_t>(blockIdx.y) * kChannels;
+    x += static_cast<int64_t>(blockIdx.y) * C;
+    out += static_cast<int64_t>(blockIdx.y) * C;
+    gamma += static_cast<int64_t>(blockIdx.y) * C * C;
+    beta += static_cast<int64_t>(blockIdx.y) * C;
   }
   extern __shared__ float4 smem[];
   float* gam = reinterpret_cast<float*>(smem);  // [k][c]
@@ -221,19 +247,33 @@ gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   const int tx = lane % kLanesX;  // channels 4 * tx + kQuadStep * q .. + 3
   const int ty = lane / kLanesX;  // rows ty + kLanesY * i of the warp's tile
   // This warp's two staged tiles: [2][kWarpRows][kXStride].
-  float* xw = gam + kChannels * kChannels + warp * 2 * kWarpRows * kXStride;
+  float* xw = gam + C * C + warp * 2 * kWarpRows * kXStride;
 
-  for (int i = tid; i < kChannels * kChannels / 4; i += kThreads) {
+  for (int i = tid; i < C * C / 4; i += kThreads) {
     cp_async16(gam + 4 * i, gamma + 4 * i, 16);
   }
   auto load_tile = [&](int buf, int64_t tile) {
     float* dst = xw + buf * kWarpRows * kXStride;
+    if constexpr (C == 128) {
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {  // one row of 512 bytes a step
-      const int64_t row = tile * kWarpRows + r;
-      const bool valid = row < rows;
-      cp_async16(dst + r * kXStride + 4 * lane, valid ? x + row * row_stride + 4 * lane : x,
-                 valid ? 16 : 0);
+      for (int r = 0; r < kWarpRows; ++r) {  // one row of 512 bytes a step
+        const int64_t row = tile * kWarpRows + r;
+        const bool valid = row < rows;
+        cp_async16(dst + r * kXStride + 4 * lane, valid ? x + row * row_stride + 4 * lane : x,
+                   valid ? 16 : 0);
+      }
+    } else {
+      // 16 bytes a lane a step across the tile's rows of C / 4 chunks.
+#pragma unroll
+      for (int step = 0; step < kWarpRows * C / 128; ++step) {
+        const int chunk = 32 * step + lane;
+        const int r = chunk / (C / 4);
+        const int q = chunk % (C / 4);
+        const int64_t row = tile * kWarpRows + r;
+        const bool valid = row < rows;
+        cp_async16(dst + r * kXStride + 4 * q, valid ? x + row * row_stride + 4 * q : x,
+                   valid ? 16 : 0);
+      }
     }
   };
   const int64_t num_tiles = (rows + kWarpRows - 1) / kWarpRows;
@@ -282,8 +322,8 @@ gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     float4 h[kQuads];
     load_gamma(g, g_base);
 #pragma unroll 2
-    for (int k = 0; k < kChannels; k += 4) {
-      const int kn = operand_k((k + 4) & (kChannels - 1));
+    for (int k = 0; k < C; k += 4) {
+      const int kn = operand_k(next_k<C>(k));
       float4 sn[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
@@ -295,16 +335,16 @@ gdn_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
         s[i].w *= s[i].w;
 #endif
       }
-      load_gamma(h, g_base + operand_k(k + 1) * kChannels);
+      load_gamma(h, g_base + operand_k(k + 1) * C);
 #pragma unroll
       for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].x, g);
-      load_gamma(g, g_base + operand_k(k + 2) * kChannels);
+      load_gamma(g, g_base + operand_k(k + 2) * C);
 #pragma unroll
       for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].y, h);
-      load_gamma(h, g_base + operand_k(k + 3) * kChannels);
+      load_gamma(h, g_base + operand_k(k + 3) * C);
 #pragma unroll
       for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].z, g);
-      load_gamma(g, g_base + kn * kChannels);
+      load_gamma(g, g_base + kn * C);
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         fma_row(acc[i], s[i].w, h);
@@ -507,19 +547,24 @@ gdn_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g
 // ------------------------------------------------------------ backward ----
 
 // A block's share of grad_gamma ([k][c]) and grad_beta, summed over the tiles it walks.
-constexpr int kPartialFloats = kChannels * kChannels + kChannels;
+template <int C>
+constexpr int PartialFloats = C * C + C;
 
+template <int C>
 constexpr int bwd_smem_bytes(int tile_rows) {
   // gamma, x and g of the tile double-buffered, t of the tile.
-  return (kChannels * kChannels + 5 * tile_rows * kChannels) * static_cast<int>(sizeof(float));
+  return (C * C + 5 * tile_rows * C) * static_cast<int>(sizeof(float));
 }
 
 // Where gamma[k][4 * chunk .. + 3] sits in shared memory: the 16-byte chunk
 // is XORed with (k / 4) % 8, so that a row of gamma (the pool) and the same
 // four channels of the rows k = 4 * tx + j of 8 lanes (t @ gamma^T) both
-// fall into distinct banks.
+// fall into distinct banks. A row is C / 4 chunks, a multiple of 8, so
+// the XOR stays in the row; at C = 192 a row is 768 bytes, a multiple of
+// 128 as at 128, and the same swizzle serves.
+template <int C>
 __device__ __forceinline__ int gamma_at(int k, int chunk) {
-  return k * kChannels + 4 * (chunk ^ ((k >> 2) & 7));
+  return k * C + 4 * (chunk ^ ((k >> 2) & 7));
 }
 
 __device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
@@ -543,28 +588,29 @@ __device__ __forceinline__ float grad_pool(float g, float x, float pool, float& 
   return -0.5f * g * x * scale / pool;
 }
 
-template <int RM, bool kInverse>
+template <int C, int RM, bool kInverse>
 __global__ void __launch_bounds__(kThreads, 1)
 gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_out,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    float* __restrict__ grad_x, float* __restrict__ partials, int64_t rows,
                    int want_x, int want_params) {
+  constexpr int kQuads = Quads<C>;
   constexpr int kWarpRows = kLanesY * RM;
   constexpr int kTileRows = kWarps * kWarpRows;
-  const int64_t row_stride = static_cast<int64_t>(gridDim.y) * kChannels;
-  x += static_cast<int64_t>(blockIdx.y) * kChannels;
-  grad_out += static_cast<int64_t>(blockIdx.y) * kChannels;
-  if (want_x) grad_x += static_cast<int64_t>(blockIdx.y) * kChannels;
-  gamma += static_cast<int64_t>(blockIdx.y) * kChannels * kChannels;
-  beta += static_cast<int64_t>(blockIdx.y) * kChannels;
+  const int64_t row_stride = static_cast<int64_t>(gridDim.y) * C;
+  x += static_cast<int64_t>(blockIdx.y) * C;
+  grad_out += static_cast<int64_t>(blockIdx.y) * C;
+  if (want_x) grad_x += static_cast<int64_t>(blockIdx.y) * C;
+  gamma += static_cast<int64_t>(blockIdx.y) * C * C;
+  beta += static_cast<int64_t>(blockIdx.y) * C;
   if (want_params) {
-    partials += (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kPartialFloats;
+    partials += (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * PartialFloats<C>;
   }
   extern __shared__ float4 smem[];
   float* gam = reinterpret_cast<float*>(smem);  // [k][c], chunks swizzled (gamma_at)
-  float* xs_all = gam + kChannels * kChannels;  // [2][kTileRows][128]: x, then x^2
-  float* gs_all = xs_all + 2 * kTileRows * kChannels;  // [2][kTileRows][128]: g, then g * scale
-  float* ts = gs_all + 2 * kTileRows * kChannels;      // [kTileRows][128]: t
+  float* xs_all = gam + C * C;                  // [2][kTileRows][C]: x, then x^2
+  float* gs_all = xs_all + 2 * kTileRows * C;   // [2][kTileRows][C]: g, then g * scale
+  float* ts = gs_all + 2 * kTileRows * C;       // [kTileRows][C]: t
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -572,23 +618,43 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
   const int ty = lane / kLanesX;  // rows ty + kLanesY * i of the warp's rows
   const int wrow = warp * kWarpRows;  // the warp's first row in the tile
   // In the grad_gamma pass the thread owns k = 4 * a + 64 * p + j and
-  // c = 4 * tx + 64 * p + j: an 8 x 8 block of the 128 x 128.
+  // c = 4 * tx + 64 * p + j: a 4 kQuads x 4 kQuads block of the C x C
+  // (8 x 8 of 128 x 128, 12 x 12 of 192 x 192).
   const int a = kLanesY * warp + ty;
 
-  for (int i = tid; i < kChannels * kChannels / 4; i += kThreads) {
-    cp_async16(gam + gamma_at(i >> 5, i & 31), gamma + 4 * i, 16);
+  for (int i = tid; i < C * C / 4; i += kThreads) {
+    if constexpr (C == 128) {
+      cp_async16(gam + gamma_at<C>(i >> 5, i & 31), gamma + 4 * i, 16);
+    } else {
+      cp_async16(gam + gamma_at<C>(i / (C / 4), i % (C / 4)), gamma + 4 * i, 16);
+    }
   }
   // Each warp stages its own rows of x and g.
   auto load_tile = [&](int buf, int64_t tile) {
-    float* xd = xs_all + (buf * kTileRows + wrow) * kChannels;
-    float* gd = gs_all + (buf * kTileRows + wrow) * kChannels;
+    float* xd = xs_all + (buf * kTileRows + wrow) * C;
+    float* gd = gs_all + (buf * kTileRows + wrow) * C;
+    if constexpr (C == 128) {
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-      const int64_t row = tile * kTileRows + wrow + r;
-      const bool valid = row < rows;
-      const int64_t at = valid ? row * row_stride + 4 * lane : 0;
-      cp_async16(xd + r * kChannels + 4 * lane, x + at, valid ? 16 : 0);
-      cp_async16(gd + r * kChannels + 4 * lane, grad_out + at, valid ? 16 : 0);
+      for (int r = 0; r < kWarpRows; ++r) {
+        const int64_t row = tile * kTileRows + wrow + r;
+        const bool valid = row < rows;
+        const int64_t at = valid ? row * row_stride + 4 * lane : 0;
+        cp_async16(xd + r * C + 4 * lane, x + at, valid ? 16 : 0);
+        cp_async16(gd + r * C + 4 * lane, grad_out + at, valid ? 16 : 0);
+      }
+    } else {
+      // 16 bytes a lane a step across the warp's rows of C / 4 chunks.
+#pragma unroll
+      for (int step = 0; step < kWarpRows * C / 128; ++step) {
+        const int chunk = 32 * step + lane;
+        const int r = chunk / (C / 4);
+        const int q = chunk % (C / 4);
+        const int64_t row = tile * kTileRows + wrow + r;
+        const bool valid = row < rows;
+        const int64_t at = valid ? row * row_stride + 4 * q : 0;
+        cp_async16(xd + r * C + 4 * q, x + at, valid ? 16 : 0);
+        cp_async16(gd + r * C + 4 * q, grad_out + at, valid ? 16 : 0);
+      }
     }
   };
   const int64_t num_tiles = (rows + kTileRows - 1) / kTileRows;
@@ -601,13 +667,13 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
   for (int q = 0; q < kQuads; ++q) {
     beta_q[q] = *reinterpret_cast<const float4*>(beta + 4 * tx + kQuadStep * q);
   }
-  float part[8][8];  // [4 * p + j of k][4 * p + j of c]
-  float part_beta[8];
+  float part[4 * kQuads][4 * kQuads];  // [4 * p + j of k][4 * p + j of c]
+  float part_beta[4 * kQuads];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 4 * kQuads; ++i) {
     part_beta[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) part[i][j] = 0.0f;
+    for (int j = 0; j < 4 * kQuads; ++j) part[i][j] = 0.0f;
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -619,9 +685,9 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
     cp_async_wait<1>();  // this tile's rows of this warp have landed
     __syncwarp();
 
-    float* xs = xs_all + buf * kTileRows * kChannels;
-    float* gs = gs_all + buf * kTileRows * kChannels;
-    const float* xw = xs + (wrow + ty) * kChannels;
+    float* xs = xs_all + buf * kTileRows * C;
+    float* gs = gs_all + buf * kTileRows * C;
+    const float* xw = xs + (wrow + ty) * C;
 
     // The pool of the warp's rows: the forward kernel's contraction, x
     // squared on the way, gamma's rows read through the swizzle.
@@ -635,34 +701,34 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
       float4 s[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        s[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * kChannels);
+        s[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * C);
       }
       float4 g[kQuads];
       float4 h[kQuads];
       load_gamma(g, gam + 4 * tx);
 #pragma unroll 2
-      for (int k = 0; k < kChannels; k += 4) {
-        const int kn = (k + 4) & (kChannels - 1);
+      for (int k = 0; k < C; k += 4) {
+        const int kn = next_k<C>(k);
         const float* row_k = gam + 4 * (tx ^ ((k >> 2) & 7));
         float4 sn[RM];
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
-          sn[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * kChannels + kn);
+          sn[i] = *reinterpret_cast<const float4*>(xw + kLanesY * i * C + kn);
           s[i].x *= s[i].x;
           s[i].y *= s[i].y;
           s[i].z *= s[i].z;
           s[i].w *= s[i].w;
         }
-        load_gamma(h, row_k + (k + 1) * kChannels);
+        load_gamma(h, row_k + (k + 1) * C);
 #pragma unroll
         for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].x, g);
-        load_gamma(g, row_k + (k + 2) * kChannels);
+        load_gamma(g, row_k + (k + 2) * C);
 #pragma unroll
         for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].y, h);
-        load_gamma(h, row_k + (k + 3) * kChannels);
+        load_gamma(h, row_k + (k + 3) * C);
 #pragma unroll
         for (int i = 0; i < RM; ++i) fma_row(acc[i], s[i].z, g);
-        load_gamma(g, gam + 4 * (tx ^ ((kn >> 2) & 7)) + kn * kChannels);
+        load_gamma(g, gam + 4 * (tx ^ ((kn >> 2) & 7)) + kn * C);
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
           fma_row(acc[i], s[i].w, h);
@@ -679,7 +745,7 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
       const bool valid = tile * kTileRows + r < rows;
 #pragma unroll
       for (int q = 0; q < kQuads; ++q) {
-        const int at = r * kChannels + 4 * tx + kQuadStep * q;
+        const int at = r * C + 4 * tx + kQuadStep * q;
         const float4 xv = *reinterpret_cast<const float4*>(xs + at);
         const float4 gv = *reinterpret_cast<const float4*>(gs + at);
         float4 t, d;
@@ -705,22 +771,22 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
 #pragma unroll
         for (int j = 0; j < 4 * kQuads; ++j) acc[i][j] = 0.0f;
       }
-      const float* tw = ts + (wrow + ty) * kChannels;
-      const float* g_rows = gam + 4 * tx * kChannels;
+      const float* tw = ts + (wrow + ty) * C;
+      const float* g_rows = gam + 4 * tx * C;
 #pragma unroll 2
-      for (int cc = 0; cc < kChannels / 4; ++cc) {
+      for (int cc = 0; cc < C / 4; ++cc) {
         const int off = 4 * (cc ^ (tx & 7));
         float4 t4[RM];
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
-          t4[i] = *reinterpret_cast<const float4*>(tw + kLanesY * i * kChannels + 4 * cc);
+          t4[i] = *reinterpret_cast<const float4*>(tw + kLanesY * i * C + 4 * cc);
         }
 #pragma unroll
         for (int q = 0; q < kQuads; ++q) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const float4 gv = *reinterpret_cast<const float4*>(
-                g_rows + (kQuadStep * q + j) * kChannels + off);
+                g_rows + (kQuadStep * q + j) * C + off);
 #pragma unroll
             for (int i = 0; i < RM; ++i) fma4(acc[i][4 * q + j], t4[i], gv);
           }
@@ -735,8 +801,8 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
 #pragma unroll
         for (int q = 0; q < kQuads; ++q) {
           const int c = 4 * tx + kQuadStep * q;
-          const float4 xv = *reinterpret_cast<const float4*>(xs + r * kChannels + c);
-          const float4 dv = *reinterpret_cast<const float4*>(gs + r * kChannels + c);
+          const float4 xv = *reinterpret_cast<const float4*>(xs + r * C + c);
+          const float4 dv = *reinterpret_cast<const float4*>(gs + r * C + c);
           float4 y;
           y.x = dv.x + 2.0f * xv.x * acc[i][4 * q + 0];
           y.y = dv.y + 2.0f * xv.y * acc[i][4 * q + 1];
@@ -754,7 +820,7 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
 #pragma unroll
         for (int q = 0; q < kQuads; ++q) {
           float4* xv = reinterpret_cast<float4*>(
-              xs + (wrow + ty + kLanesY * i) * kChannels + 4 * tx + kQuadStep * q);
+              xs + (wrow + ty + kLanesY * i) * C + 4 * tx + kQuadStep * q);
           const float4 v = *xv;
           *xv = make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
         }
@@ -763,21 +829,21 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
       // grad_gamma += (x^2)^T t over the tile's rows, in order of rows.
 #pragma unroll 2
       for (int r = 0; r < kTileRows; ++r) {
-        const float* sr = xs + r * kChannels + 4 * a;
-        const float* tr = ts + r * kChannels + 4 * tx;
-        float4 s[2], t[2];
+        const float* sr = xs + r * C + 4 * a;
+        const float* tr = ts + r * C + 4 * tx;
+        float4 s[kQuads], t[kQuads];
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
+        for (int p = 0; p < kQuads; ++p) {
           s[p] = *reinterpret_cast<const float4*>(sr + kQuadStep * p);
           t[p] = *reinterpret_cast<const float4*>(tr + kQuadStep * p);
         }
 #pragma unroll
-        for (int pk = 0; pk < 2; ++pk) {
+        for (int pk = 0; pk < kQuads; ++pk) {
           const float sk[4] = {s[pk].x, s[pk].y, s[pk].z, s[pk].w};
 #pragma unroll
           for (int jk = 0; jk < 4; ++jk) {
 #pragma unroll
-            for (int pc = 0; pc < 2; ++pc) {
+            for (int pc = 0; pc < kQuads; ++pc) {
               float* out = part[4 * pk + jk] + 4 * pc;
               out[0] = fmaf(sk[jk], t[pc].x, out[0]);
               out[1] = fmaf(sk[jk], t[pc].y, out[1]);
@@ -791,8 +857,8 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
 #pragma unroll
       for (int r = a; r < kTileRows; r += kLanesY * kWarps) {
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const float4 t = *reinterpret_cast<const float4*>(ts + r * kChannels + 4 * tx +
+        for (int p = 0; p < kQuads; ++p) {
+          const float4 t = *reinterpret_cast<const float4*>(ts + r * C + 4 * tx +
                                                            kQuadStep * p);
           part_beta[4 * p + 0] += t.x;
           part_beta[4 * p + 1] += t.y;
@@ -809,38 +875,40 @@ gdn_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ grad_o
   // The block's partial: grad_gamma's 8 x 8 of each thread as it stands, then
   // grad_beta, its 16 sums of rows a mod 16 added in order of a.
 #pragma unroll
-  for (int pk = 0; pk < 2; ++pk) {
+  for (int pk = 0; pk < kQuads; ++pk) {
 #pragma unroll
     for (int jk = 0; jk < 4; ++jk) {
       const int k = 4 * a + kQuadStep * pk + jk;
 #pragma unroll
-      for (int pc = 0; pc < 2; ++pc) {
+      for (int pc = 0; pc < kQuads; ++pc) {
         const float* v = part[4 * pk + jk] + 4 * pc;
-        *reinterpret_cast<float4*>(partials + k * kChannels + 4 * tx + kQuadStep * pc) =
+        *reinterpret_cast<float4*>(partials + k * C + 4 * tx + kQuadStep * pc) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
     }
   }
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    *reinterpret_cast<float4*>(ts + a * kChannels + 4 * tx + kQuadStep * p) =
+  for (int p = 0; p < kQuads; ++p) {
+    *reinterpret_cast<float4*>(ts + a * C + 4 * tx + kQuadStep * p) =
         make_float4(part_beta[4 * p], part_beta[4 * p + 1], part_beta[4 * p + 2],
                     part_beta[4 * p + 3]);
   }
   __syncthreads();
-  if (tid < kChannels) {
+  if (tid < C) {
     float sum = 0.0f;
-    for (int r = 0; r < kLanesY * kWarps; ++r) sum += ts[r * kChannels + tid];
-    partials[kChannels * kChannels + tid] = sum;
+    for (int r = 0; r < kLanesY * kWarps; ++r) sum += ts[r * C + tid];
+    partials[C * C + tid] = sum;
   }
 }
 
 // grad_gamma and grad_beta of model blockIdx.y: the sum of its `parts` blocks'
 // partials, in a fixed order (parts p = group mod 16 in order, then the 16
 // groups in order), with no atomics. A block sums 64 floats of the partial.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 gdn_bwd_reduce_kernel(const float* __restrict__ partials, int parts,
                       float* __restrict__ grad_gamma, float* __restrict__ grad_beta) {
+  constexpr int kPartialFloats = PartialFloats<C>;
   constexpr int kGroups = kThreads / 16;
   __shared__ float4 sums[kGroups][16];
   const int col = threadIdx.x & 15;
@@ -866,14 +934,14 @@ gdn_bwd_reduce_kernel(const float* __restrict__ partials, int parts,
     acc.z += v.z;
     acc.w += v.w;
   }
-  if (e < kChannels * kChannels) {
+  if (e < C * C) {
     if (grad_gamma != nullptr) {
-      *reinterpret_cast<float4*>(grad_gamma + static_cast<int64_t>(blockIdx.y) * kChannels *
-                                                  kChannels + e) = acc;
+      *reinterpret_cast<float4*>(grad_gamma + static_cast<int64_t>(blockIdx.y) * C * C + e) =
+          acc;
     }
   } else if (grad_beta != nullptr) {
-    *reinterpret_cast<float4*>(grad_beta + static_cast<int64_t>(blockIdx.y) * kChannels + e -
-                               kChannels * kChannels) = acc;
+    *reinterpret_cast<float4*>(grad_beta + static_cast<int64_t>(blockIdx.y) * C + e - C * C) =
+        acc;
   }
 }
 
@@ -923,35 +991,52 @@ int launch(Kernel kernel, int smem_bytes, int* max_grid, int64_t num_blocks_want
 
 // A block tile of kTileRows rows: each warp's tile is an eighth of it.
 // `rows` counts the rows of one model.
-template <int kTileRows, bool kInverse, bool kQuantize, bool kStacked>
+template <int C, int kTileRows, bool kInverse, bool kQuantize, bool kStacked>
 int launch_f32(const void* x, const void* gamma, const void* beta, const void* bin_widths,
                void* out, int64_t rows, int models, void* stream) {
   static int max_grid = 0;  // resident blocks on the whole card
   constexpr int RM = kTileRows / kWarps / kLanesY;
-  return launch(gdn_f32_kernel<RM, kInverse, kQuantize, kStacked>,
-                f32_smem_bytes(kTileRows / kWarps), &max_grid,
+  static_assert(f32_smem_bytes<C>(kTileRows / kWarps) <= 227 * 1024, "a block's shared memory");
+  return launch(gdn_f32_kernel<C, RM, kInverse, kQuantize, kStacked>,
+                f32_smem_bytes<C>(kTileRows / kWarps), &max_grid,
                 (rows + kTileRows - 1) / kTileRows, models, stream,
                 static_cast<const float*>(x), static_cast<const float*>(gamma),
                 static_cast<const float*>(beta), static_cast<const float*>(bin_widths),
                 static_cast<float*>(out), rows);
 }
 
-template <bool kInverse, bool kQuantize, bool kStacked = false>
+// The tile heights of each width: at 128 channels 128, 64 or 32 rows; at
+// 192, where gamma alone takes 144 KB, 48 or 32 (two staged tiles of 6 or 4
+// rows a warp beside it: 217.5 or 193 KB; 64 rows would need 242 KB).
+template <int C, bool kInverse, bool kQuantize, bool kStacked = false>
 int launch_f32_tiled(const void* x, const void* gamma, const void* beta,
                      const void* bin_widths, void* out, int64_t rows, int tile_rows,
                      void* stream, int models = 1) {
-  switch (tile_rows) {
-    case 128:
-      return launch_f32<128, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
-                                                            rows, models, stream);
-    case 64:
-      return launch_f32<64, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
-                                                           rows, models, stream);
-    case 32:
-      return launch_f32<32, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
-                                                           rows, models, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (C == 192) {
+    switch (tile_rows) {
+      case 48:
+        return launch_f32<C, 48, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                                rows, models, stream);
+      case 32:
+        return launch_f32<C, 32, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                                rows, models, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (tile_rows) {
+      case 128:
+        return launch_f32<C, 128, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths,
+                                                                 out, rows, models, stream);
+      case 64:
+        return launch_f32<C, 64, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                                rows, models, stream);
+      case 32:
+        return launch_f32<C, 32, kInverse, kQuantize, kStacked>(x, gamma, beta, bin_widths, out,
+                                                                rows, models, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -971,16 +1056,17 @@ int launch_bf16(const void* x, const void* gamma, const void* beta, void* out, i
 // is asked for, the reduction of the partials (`blocks` a model, the size
 // the caller gave them, which must be the tile pass's grid). Without `run`
 // it launches nothing and puts the tile pass's blocks a model into `blocks`.
-template <int kTileRows, bool kInverse>
+template <int C, int kTileRows, bool kInverse>
 int launch_bwd(bool run, const void* x, const void* grad_out, const void* gamma,
                const void* beta, void* grad_x, void* partials, void* grad_gamma,
                void* grad_beta, int64_t rows, int models, int* blocks, void* stream) {
   static int max_grid = 0;  // resident blocks on the whole card
   constexpr int RM = kTileRows / kWarps / kLanesY;
-  const auto kernel = gdn_bwd_f32_kernel<RM, kInverse>;
+  static_assert(bwd_smem_bytes<C>(kTileRows) <= 227 * 1024, "a block's shared memory");
+  const auto kernel = gdn_bwd_f32_kernel<C, RM, kInverse>;
   const int64_t tiles = std::max<int64_t>((rows + kTileRows - 1) / kTileRows, 1);
   dim3 grid;
-  cudaError_t err = persistent_grid(kernel, bwd_smem_bytes(kTileRows), &max_grid, tiles,
+  cudaError_t err = persistent_grid(kernel, bwd_smem_bytes<C>(kTileRows), &max_grid, tiles,
                                     models, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!run) {
@@ -992,25 +1078,34 @@ int launch_bwd(bool run, const void* x, const void* grad_out, const void* gamma,
     return static_cast<int>(cudaErrorInvalidValue);  // partials sized for another grid
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, kThreads, bwd_smem_bytes(kTileRows), s>>>(
+  kernel<<<grid, kThreads, bwd_smem_bytes<C>(kTileRows), s>>>(
       static_cast<const float*>(x), static_cast<const float*>(grad_out),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<float*>(grad_x), static_cast<float*>(partials), rows, grad_x != nullptr,
       want_params);
   err = cudaGetLastError();
   if (err != cudaSuccess || !want_params) return static_cast<int>(err);
-  gdn_bwd_reduce_kernel<<<dim3(kPartialFloats / 64, models), kThreads, 0, s>>>(
+  gdn_bwd_reduce_kernel<C><<<dim3(PartialFloats<C> / 64, models), kThreads, 0, s>>>(
       static_cast<const float*>(partials), static_cast<int>(grid.x),
       static_cast<float*>(grad_gamma), static_cast<float*>(grad_beta));
   return static_cast<int>(cudaGetLastError());
 }
 
-using BwdLauncher = decltype(&launch_bwd<64, false>);
+using BwdLauncher = decltype(&launch_bwd<128, 64, false>);
 
-// The launcher of a tile height and GDN or IGDN; null for another height.
-BwdLauncher bwd_launcher(int tile_rows, int inverse) {
-  if (tile_rows == 64) return inverse ? launch_bwd<64, true> : launch_bwd<64, false>;
-  if (tile_rows == 32) return inverse ? launch_bwd<32, true> : launch_bwd<32, false>;
+// The launcher of a width, a tile height and GDN or IGDN; null for another
+// width or height. At 128 channels tiles of 64 or 32 rows; at 192 of 16
+// (gamma 144 KB and five tiles of 16 rows, 204 KB: 32 rows would need 264).
+BwdLauncher bwd_launcher(int channels, int tile_rows, int inverse) {
+  if (channels == 128 && tile_rows == 64) {
+    return inverse ? launch_bwd<128, 64, true> : launch_bwd<128, 64, false>;
+  }
+  if (channels == 128 && tile_rows == 32) {
+    return inverse ? launch_bwd<128, 32, true> : launch_bwd<128, 32, false>;
+  }
+  if (channels == 192 && tile_rows == 16) {
+    return inverse ? launch_bwd<192, 16, true> : launch_bwd<192, 16, false>;
+  }
   return nullptr;
 }
 
@@ -1049,6 +1144,7 @@ AEIC_MARK_KERNEL(aeic_mark_step_end)
 AEIC_MARK_KERNEL(aeic_mark_gdn_backward_begin)
 AEIC_MARK_KERNEL(aeic_mark_gdn_backward_end)
 AEIC_MARK_KERNEL(aeic_mark_entropy)
+AEIC_MARK_KERNEL(aeic_mark_context)
 AEIC_MARK_KERNEL(aeic_mark_synthesis)
 
 namespace {
@@ -1070,6 +1166,7 @@ const Mark kMarks[] = {
     {"aeic_mark_gdn_backward_begin", aeic_mark_gdn_backward_begin},
     {"aeic_mark_gdn_backward_end", aeic_mark_gdn_backward_end},
     {"aeic_mark_entropy", aeic_mark_entropy},
+    {"aeic_mark_context", aeic_mark_context},
     {"aeic_mark_synthesis", aeic_mark_synthesis},
 };
 constexpr int kNumMarks = sizeof(kMarks) / sizeof(kMarks[0]);
@@ -1080,26 +1177,34 @@ extern "C" {
 
 // Each entry launches on `stream` (a cudaStream_t) and returns the
 // cudaError_t of the launch (0 on success). Pointers are device pointers to
-// C-contiguous, 16-byte aligned buffers: x and out (rows, 128), gamma
-// (128, 128) fp32 indexed [k][c], beta and bin_widths (128,) fp32.
-// `tile_rows` is the fp32 kernels' tile height: 128, 64 or 32.
+// C-contiguous, 16-byte aligned buffers: x and out (rows, C), gamma (C, C)
+// fp32 indexed [k][c], beta and bin_widths (C,) fp32. C is 128 but where
+// an entry takes `channels` (128 or 192). `tile_rows` is the fp32 kernels'
+// tile height: 128, 64 or 32 at 128 channels, 48 or 32 at 192.
 // aeic_gdn_f32_stacked takes `models` models at once: x and out are
 // (rows, models, 128), gamma (models, 128, 128) and beta (models, 128).
 
 int aeic_gdn_f32(const void* x, const void* gamma, const void* beta, void* out,
-                 int64_t rows, int inverse, int tile_rows, void* stream) {
-  return inverse ? launch_f32_tiled<true, false>(x, gamma, beta, nullptr, out, rows,
-                                                 tile_rows, stream)
-                 : launch_f32_tiled<false, false>(x, gamma, beta, nullptr, out, rows,
-                                                  tile_rows, stream);
+                 int64_t rows, int channels, int inverse, int tile_rows, void* stream) {
+  if (channels == 192) {
+    return inverse ? launch_f32_tiled<192, true, false>(x, gamma, beta, nullptr, out, rows,
+                                                        tile_rows, stream)
+                   : launch_f32_tiled<192, false, false>(x, gamma, beta, nullptr, out, rows,
+                                                         tile_rows, stream);
+  }
+  if (channels != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return inverse ? launch_f32_tiled<128, true, false>(x, gamma, beta, nullptr, out, rows,
+                                                      tile_rows, stream)
+                 : launch_f32_tiled<128, false, false>(x, gamma, beta, nullptr, out, rows,
+                                                       tile_rows, stream);
 }
 
 int aeic_gdn_f32_stacked(const void* x, const void* gamma, const void* beta, void* out,
                          int64_t rows, int models, int inverse, int tile_rows, void* stream) {
-  return inverse ? launch_f32_tiled<true, false, true>(x, gamma, beta, nullptr, out, rows,
-                                                       tile_rows, stream, models)
-                 : launch_f32_tiled<false, false, true>(x, gamma, beta, nullptr, out, rows,
-                                                        tile_rows, stream, models);
+  return inverse ? launch_f32_tiled<128, true, false, true>(x, gamma, beta, nullptr, out, rows,
+                                                            tile_rows, stream, models)
+                 : launch_f32_tiled<128, false, false, true>(x, gamma, beta, nullptr, out, rows,
+                                                             tile_rows, stream, models);
 }
 
 int aeic_gdn_bf16(const void* x, const void* gamma, const void* beta, void* out,
@@ -1111,23 +1216,24 @@ int aeic_gdn_bf16(const void* x, const void* gamma, const void* beta, void* out,
 int aeic_gdn_quantize_f32(const void* x, const void* gamma, const void* beta,
                           const void* bin_widths, void* out, int64_t rows, int inverse,
                           int tile_rows, void* stream) {
-  return inverse ? launch_f32_tiled<true, true>(x, gamma, beta, bin_widths, out, rows,
-                                                tile_rows, stream)
-                 : launch_f32_tiled<false, true>(x, gamma, beta, bin_widths, out, rows,
-                                                 tile_rows, stream);
+  return inverse ? launch_f32_tiled<128, true, true>(x, gamma, beta, bin_widths, out, rows,
+                                                     tile_rows, stream)
+                 : launch_f32_tiled<128, false, true>(x, gamma, beta, bin_widths, out, rows,
+                                                      tile_rows, stream);
 }
 
-// The gradient of aeic_gdn_f32_stacked (one model: models = 1): x and
-// grad_out (rows, models, 128); grad_x of their shape or null; partials
-// (models, blocks, 128 * 128 + 128) fp32 scratch, or null when neither
-// grad_gamma (models, 128, 128) nor grad_beta (models, 128) is asked for
-// (either may be null). `blocks` is what aeic_gdn_backward_blocks gives for
-// the same rows, models, inverse and `tile_rows` (64 or 32).
+// The gradient of aeic_gdn_f32_stacked (one model: models = 1), or at 192
+// channels of aeic_gdn_f32 (models = 1 only): x and grad_out (rows, models,
+// C); grad_x of their shape or null; partials (models, blocks, C * C + C)
+// fp32 scratch, or null when neither grad_gamma (models, C, C) nor
+// grad_beta (models, C) is asked for (either may be null). `blocks` is what
+// aeic_gdn_backward_blocks gives for the same rows, models, channels,
+// inverse and `tile_rows` (64 or 32 at 128 channels, 16 at 192).
 int aeic_gdn_backward_f32(const void* x, const void* grad_out, const void* gamma,
                           const void* beta, void* grad_x, void* partials, void* grad_gamma,
-                          void* grad_beta, int64_t rows, int models, int blocks, int inverse,
-                          int tile_rows, void* stream) {
-  const BwdLauncher launcher = bwd_launcher(tile_rows, inverse);
+                          void* grad_beta, int64_t rows, int models, int blocks, int channels,
+                          int inverse, int tile_rows, void* stream) {
+  const BwdLauncher launcher = bwd_launcher(channels, tile_rows, inverse);
   if (launcher == nullptr || models <= 0 || rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1138,8 +1244,9 @@ int aeic_gdn_backward_f32(const void* x, const void* grad_out, const void* gamma
 // The blocks a model of aeic_gdn_backward_f32's tile pass (its grid, sized
 // from the card's occupancy), the partials' second axis; minus a cudaError_t
 // when the arguments or the card's query fail.
-int aeic_gdn_backward_blocks(int64_t rows, int models, int inverse, int tile_rows) {
-  const BwdLauncher launcher = bwd_launcher(tile_rows, inverse);
+int aeic_gdn_backward_blocks(int64_t rows, int models, int channels, int inverse,
+                             int tile_rows) {
+  const BwdLauncher launcher = bwd_launcher(channels, tile_rows, inverse);
   if (launcher == nullptr || models <= 0 || rows < 0) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }

@@ -153,13 +153,13 @@ def main():
     for (label, path) in zip(PROBES, paths):
         fn = ctypes.CDLL(path).aeic_gdn_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+                                               ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         times = []
         for inverse in (0, 1):
             def launch(index=0):
                 status = fn(inputs[index % 3].data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                            outputs[index % 3].data_ptr(), ROWS, inverse, TILE_ROWS,
+                            outputs[index % 3].data_ptr(), ROWS, 128, inverse, TILE_ROWS,
                             torch.cuda.current_stream().cuda_stream)
                 if status != 0:
                     raise RuntimeError(f"launch failed: CUDA error {status}")

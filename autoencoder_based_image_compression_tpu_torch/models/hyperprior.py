@@ -109,7 +109,7 @@ def density_params(params):
             if name.startswith("fd_")}
 
 
-def _gdn_sites(params, transform):
+def gdn_sites(params, transform):
     """``[(gamma, beta)]`` of the transform's three GDN sites: the effective
     values of their stored variables, gamma transposed to the kernel's
     ``[k][c]``. The three sites go through the reparameterisation
@@ -124,7 +124,7 @@ def analysis(params, x):
     """``g_a``: images ``(B, H, W, 3)`` in [0, 1] -> ``y`` ``(B, H/16,
     W/16, M)``."""
     disable_tf32()
-    for (i, (gamma, beta)) in enumerate(_gdn_sites(params, "ga"), start=1):
+    for (i, (gamma, beta)) in enumerate(gdn_sites(params, "ga"), start=1):
         x = gdn_nhwc(conv_same(x, params[f"ga_w{i}"], 2) + params[f"ga_b{i}"], gamma, beta)
     return conv_same(x, params["ga_w4"], 2) + params["ga_b4"]
 
@@ -133,7 +133,7 @@ def synthesis(params, y):
     """``g_s``: latents ``(B, h, w, M)`` -> images ``(B, 16 h, 16 w, 3)``."""
     disable_tf32()
     x = y
-    for (i, (gamma, beta)) in enumerate(_gdn_sites(params, "gs"), start=1):
+    for (i, (gamma, beta)) in enumerate(gdn_sites(params, "gs"), start=1):
         x = gdn_nhwc(conv_transpose_same(x, params[f"gs_w{i}"], 2) + params[f"gs_b{i}"], gamma,
                      beta, inverse=True)
     return conv_transpose_same(x, params["gs_w4"], 2) + params["gs_b4"]
@@ -153,7 +153,7 @@ def hyper_synthesis(params, z):
     return torch.relu(conv_transpose_same(s, params["hs_w3"], 1) + params["hs_b3"])
 
 
-def _uniform(noise, like):
+def uniform(noise, like):
     """U[-1/2, 1/2) of ``like``'s shape from the generator ``noise``, or
     ``noise`` itself (two implementations fed the same numbers)."""
     if isinstance(noise, torch.Generator):
@@ -195,5 +195,5 @@ def rd_loss(params, images, noise, lmbda):
     and ``z~ = z + u'``, ``u`` then ``u'`` uniform on [-1/2, 1/2) drawn
     from the generator ``noise`` in that order, or ``noise = (u, u')``."""
     (noise_y, noise_z) = (noise, noise) if isinstance(noise, torch.Generator) else noise
-    return rate_distortion(params, images, lmbda, lambda y: y + _uniform(noise_y, y),
-                           lambda z: z + _uniform(noise_z, z))
+    return rate_distortion(params, images, lmbda, lambda y: y + uniform(noise_y, y),
+                           lambda z: z + uniform(noise_z, z))

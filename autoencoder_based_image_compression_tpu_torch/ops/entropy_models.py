@@ -13,9 +13,11 @@ arithmetic of tensorflow-compression's ``EntropyBottleneck``,
   ``z~`` is ``c(z~ + 1/2) - c(z~ - 1/2)``, each side a sigmoid of the
   logits, taken with the sign trick (both sides on the tail where the
   sigmoid does not saturate). Initialised for the scale 10.
-- **Gaussian conditional** of the latents ``y`` given ``sigma``: zero
-  mean, ``Phi((1/2 - |y~|) / sigma) - Phi((-1/2 - |y~|) / sigma)``, with
-  ``sigma`` lower-bounded at 0.11.
+- **Gaussian conditional** of the latents ``y`` given ``sigma`` (and,
+  for Minnen et al.'s mean-scale model, a mean ``mu``; zero without it):
+  ``Phi((1/2 - |y~ - mu|) / sigma) - Phi((-1/2 - |y~ - mu|) / sigma)``,
+  which is ``Phi((y~ - mu + 1/2) / sigma) - Phi((y~ - mu - 1/2) / sigma)``
+  taken on the lower tail, with ``sigma`` lower-bounded at 0.11.
 - Both likelihoods are lower-bounded at 1e-9.
 - **GDN parameters**: the nonnegative reparameterisation. The stored
   variables are ``sqrt(beta + p)`` and ``sqrt(gamma + p)``, the pedestal
@@ -163,12 +165,12 @@ def _standard_cumulative(x):
     return 0.5 * torch.special.erfc(-x * (2.0 ** -0.5))
 
 
-def gaussian_likelihood(y, sigma):
-    """The zero-mean Gaussian conditional's likelihood of each element of
-    ``y`` with the scale ``sigma`` of the same shape (bounded below at
-    0.11): at least 1e-9."""
+def gaussian_likelihood(y, sigma, mean=None):
+    """The Gaussian conditional's likelihood of each element of ``y`` with
+    the scale ``sigma`` of the same shape (bounded below at 0.11) and the
+    mean ``mean`` of that shape, or zero without it: at least 1e-9."""
     sigma = lower_bound(sigma, SCALE_BOUND)
-    values = torch.abs(y)
+    values = torch.abs(y if mean is None else y - mean)
     upper = _standard_cumulative((0.5 - values) / sigma)
     lower = _standard_cumulative((-0.5 - values) / sigma)
     return lower_bound(upper - lower, LIKELIHOOD_BOUND)

@@ -8,9 +8,12 @@ card and how the design answers it.
 
 The library is compiled with ``nvcc`` at first use into ``csrc/build/``
 and bound through its plain C interface with ``ctypes``. Each wrapper
-takes a ``(rows, 128)`` matrix: for a CPU tensor it runs the plain
-PyTorch version below; for a CUDA tensor it launches the kernel on the
-current stream or raises. Nothing falls back.
+takes a ``(rows, 128)`` matrix, and the fp32 GDN of one model
+(:func:`gdn_2d`, :func:`gdn_nhwc`, its gradient :func:`gdn_backward`)
+also a ``(rows, 192)`` one: for a CPU tensor it runs the plain PyTorch
+version below; for a CUDA tensor it launches the kernel on the current
+stream or raises. Any other width raises, and so do the bf16, quantising
+and stacked calls at 192 channels. Nothing falls back.
 
 ``gamma`` is indexed ``[k][c]`` everywhere here, in the kernels and in
 the plain versions: ``pool_c = sum_k x_k^2 * gamma[k][c] + beta_c``,
@@ -39,9 +42,11 @@ grad. No call returns a detached result quietly.
 launched: the forward's, the backward's tile pass (``*_backward``) and
 the reduction that follows it when grad_gamma or grad_beta is asked for
 (``gdn_backward_reduce``, GDN and IGDN alike), so a run can show that its
-path went through the kernels; ``LAUNCH_ROWS`` counts them per variant
-and row count, so that it can check the kernels at the row counts its
-path gave them.
+path went through the kernels; a launch at 192 channels counts under its
+own name (``gdn_f32_192``, ``igdn_f32_192``, their ``*_backward`` and
+``gdn_backward_reduce_192``), so that a step's counts say which width
+ran. ``LAUNCH_ROWS`` counts them per variant and row count, so that it
+can check the kernels at the row counts its path gave them.
 
 The library also holds the phase marks of a graphed training step
 (:func:`launch_mark`, placed by ``utils/tracing.py``): one-thread
@@ -71,6 +76,9 @@ from autoencoder_based_image_compression_tpu_torch.ops.quantization import (
 from autoencoder_based_image_compression_tpu_torch.utils.tracing import mark
 
 CHANNELS = 128
+# The widths of the fp32 GDN of one model and its gradient; every other
+# kernel takes 128 channels alone.
+WIDTHS = (128, 192)
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _SOURCE = os.path.join(_CSRC_DIR, "gdn.cu")
@@ -83,22 +91,28 @@ BUILD_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Tile heights of the fp32 kernels, tallest first, and the SMs of an H100.
-TILE_ROWS = (128, 64, 32)
+# Tile heights of the fp32 kernels by width, tallest first (a block's
+# shared memory holds gamma, C^2 floats, and the staged tiles beside it),
+# and the SMs of an H100.
+FORWARD_TILES = {128: (128, 64, 32), 192: (48, 32)}
+TILE_ROWS = FORWARD_TILES[128]
 H100_SMS = 132
-# Tile heights of the gradient kernel (its shared memory holds 64 KB of
-# gamma and five tiles of 128 floats a row), and the floats of one block's
-# partial grad_gamma and grad_beta (the tile pass's grid, which the
-# library sizes, says how many blocks a model write one).
-BACKWARD_TILE_ROWS = (64, 32)
-PARTIAL_FLOATS = CHANNELS * CHANNELS + CHANNELS
+# Tile heights of the gradient kernel by width (its shared memory holds
+# gamma and five tiles of C floats a row). Each of its blocks writes a
+# partial grad_gamma and grad_beta, C * C + C floats (the tile pass's grid,
+# which the library sizes, says how many blocks a model).
+BACKWARD_TILES = {128: (64, 32), 192: (16,)}
+BACKWARD_TILE_ROWS = BACKWARD_TILES[128]
 
 LAUNCHES = {"gdn_f32": 0, "igdn_f32": 0, "gdn_bf16": 0, "igdn_bf16": 0,
             "gdn_quantize_f32": 0, "igdn_quantize_f32": 0,
             "gdn_f32_stacked": 0, "igdn_f32_stacked": 0,
             "gdn_f32_backward": 0, "igdn_f32_backward": 0,
             "gdn_f32_stacked_backward": 0, "igdn_f32_stacked_backward": 0,
-            "gdn_backward_reduce": 0}
+            "gdn_backward_reduce": 0,
+            "gdn_f32_192": 0, "igdn_f32_192": 0,
+            "gdn_f32_192_backward": 0, "igdn_f32_192_backward": 0,
+            "gdn_backward_reduce_192": 0}
 # (variant, rows) -> launches; a stacked variant's rows are (rows a model,
 # models), and so are the reduction's, which always takes the model axis.
 LAUNCH_ROWS = collections.Counter()
@@ -159,16 +173,17 @@ def load_library():
     pointers = [ctypes.c_void_p] * 4
     rows_inverse = [ctypes.c_int64, ctypes.c_int]
     (tile, stream) = ([ctypes.c_int], [ctypes.c_void_p])
-    lib.aeic_gdn_f32.argtypes = pointers + rows_inverse + tile + stream
-    lib.aeic_gdn_f32_stacked.argtypes = (
-        pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_int] + tile + stream)
+    rows_two = rows_inverse + [ctypes.c_int]  # rows, channels (or models), inverse
+    lib.aeic_gdn_f32.argtypes = pointers + rows_two + tile + stream
+    lib.aeic_gdn_f32_stacked.argtypes = pointers + rows_two + tile + stream
     lib.aeic_gdn_bf16.argtypes = pointers + rows_inverse + stream
     lib.aeic_gdn_quantize_f32.argtypes = (
         [ctypes.c_void_p] + pointers + rows_inverse + tile + stream)
     lib.aeic_gdn_backward_f32.argtypes = (
-        pointers + pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        pointers + pointers
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         + tile + stream)
-    lib.aeic_gdn_backward_blocks.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int] + tile
+    lib.aeic_gdn_backward_blocks.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 3 + tile
     for name in ("aeic_gdn_f32", "aeic_gdn_f32_stacked", "aeic_gdn_bf16",
                  "aeic_gdn_quantize_f32", "aeic_gdn_backward_f32", "aeic_gdn_backward_blocks"):
         getattr(lib, name).restype = ctypes.c_int
@@ -244,13 +259,35 @@ def gdn_quantize_2d_plain(x, gamma, beta, bin_widths, inverse=False):
 
 # --- wrappers ---------------------------------------------------------------
 
-def _check_operands(x, gamma, beta, dtypes):
-    if x.dim() != 2 or x.shape[1] != CHANNELS:
-        raise ValueError(f"expected x of shape (rows, {CHANNELS}), got {tuple(x.shape)}.")
+def _widths_text(widths):
+    return " or ".join(str(width) for width in widths)
+
+
+def _check_operands(x, gamma, beta, dtypes, widths=(CHANNELS,)):
+    """Raises unless ``x`` is ``(rows, C)`` of a dtype of ``dtypes``, C one
+    of ``widths``, with gamma ``(C, C)`` and beta ``(C,)``; returns C."""
+    if x.dim() != 2 or x.shape[1] not in widths:
+        raise ValueError(f"expected x of shape (rows, {_widths_text(widths)}), got "
+                         f"{tuple(x.shape)}.")
     if x.dtype not in dtypes:
         raise TypeError(f"x.dtype {x.dtype} not in {dtypes}.")
-    if tuple(gamma.shape) != (CHANNELS, CHANNELS) or tuple(beta.shape) != (CHANNELS,):
-        raise ValueError("expected gamma (128, 128) and beta (128,).")
+    channels = x.shape[1]
+    if tuple(gamma.shape) != (channels, channels) or tuple(beta.shape) != (channels,):
+        raise ValueError(f"expected gamma ({channels}, {channels}) and beta ({channels},) for "
+                         f"x of {channels} channels, got {tuple(gamma.shape)} and "
+                         f"{tuple(beta.shape)}.")
+    return channels
+
+
+def _variant(name, channels):
+    """The ``LAUNCHES`` name of a launch of ``name`` (a 128-channel name) at
+    ``channels``: at 192 ``[i]gdn_f32_192``, ``[i]gdn_f32_192_backward``,
+    ``gdn_backward_reduce_192``."""
+    if channels == CHANNELS:
+        return name
+    if name == "gdn_backward_reduce":
+        return f"{name}_{channels}"
+    return name.replace("_f32", f"_f32_{channels}", 1)
 
 
 def tile_rows(rows, sms=H100_SMS, heights=TILE_ROWS):
@@ -282,7 +319,7 @@ def _cuda_operands(x, *params):
     if x.device.type != "cuda":
         raise ValueError(f"the GDN kernels run on CUDA or CPU tensors, got {x.device}.")
     if not x.is_contiguous():
-        raise ValueError("x must be C-contiguous (rows, 128).")
+        raise ValueError(f"x must be C-contiguous, got strides {x.stride()}.")
     out = []
     for param in params:
         if param.device != x.device:
@@ -309,16 +346,17 @@ def _gdn_2d_forward(x, gamma, beta, inverse):
     out = torch.empty_like(x)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), x.shape[0],
-            int(inverse))
+    (rows, channels) = x.shape
+    pointers = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr())
     if x.dtype == torch.float32:
         variant = "f32"
-        status = lib.aeic_gdn_f32(*args, tile_rows(x.shape[0], _sm_count(x.device)), stream)
+        tile = tile_rows(rows, _sm_count(x.device), FORWARD_TILES[channels])
+        status = lib.aeic_gdn_f32(*pointers, rows, channels, int(inverse), tile, stream)
     else:
         variant = "bf16"
-        status = lib.aeic_gdn_bf16(*args, stream)
+        status = lib.aeic_gdn_bf16(*pointers, rows, int(inverse), stream)
     _raise_on_status(lib, status, "gdn_2d")
-    _count(("igdn_" if inverse else "gdn_") + variant, x.shape[0])
+    _count(_variant(("igdn_" if inverse else "gdn_") + variant, channels), rows)
     return out
 
 
@@ -326,54 +364,58 @@ def gdn_backward(x, gamma, beta, grad_out, inverse, needs=(True, True, True), st
     """The gradient of :func:`gdn_stacked_2d` (one model: a stack of one):
     ``x`` and ``grad_out`` ``(rows, M, C)``, gamma ``(M, C, C)``, beta
     ``(M, C)``; returns ``(grad_x, grad_gamma, grad_beta)``, ``None`` where
-    ``needs`` is False. ``grad_out`` must have ``x``'s shape and be
-    C-contiguous, on every device. A CPU tensor takes
+    ``needs`` is False; on the card C is 128, or 192 for a single model
+    (``stacked`` False, M = 1), and another width raises. ``grad_out``
+    must have ``x``'s shape and be C-contiguous, on every device. A CPU
+    tensor (of any width) takes
     :func:`gdn_backward_plain`; a CUDA one the gradient kernel, a tile pass
     and, for grad_gamma or grad_beta, a reduction of its blocks' partials in
     a fixed order, on the current stream, or raises. The tile pass counts
     as ``[i]gdn_f32_stacked_backward`` at ``(rows, M)``, or with ``stacked``
     False (the backward of :class:`GdnFunction`, M = 1) as
     ``[i]gdn_f32_backward`` at ``rows``; the reduction as
-    ``gdn_backward_reduce`` at ``(rows, M)``."""
+    ``gdn_backward_reduce`` at ``(rows, M)``; at 192 channels under their
+    ``_192`` names."""
     if tuple(grad_out.shape) != tuple(x.shape):
         raise ValueError(f"grad_out of shape {tuple(grad_out.shape)}, x of "
                          f"{tuple(x.shape)}.")
     if not grad_out.is_contiguous():
-        raise ValueError("grad_out must be C-contiguous (rows, models, 128).")
+        raise ValueError(f"grad_out must be C-contiguous (rows, models, channels), got "
+                         f"strides {grad_out.stride()}.")
     if not stacked and x.shape[1] != 1:
         raise ValueError(f"a single model's backward got {x.shape[1]} models.")
     if x.device.type == "cpu":
         return gdn_backward_plain(x, gamma, beta, grad_out, inverse, needs)
-    _check_stacked_operands(x, gamma, beta)
+    _check_stacked_operands(x, gamma, beta, (CHANNELS,) if stacked else WIDTHS)
     if grad_out.dtype != torch.float32 or grad_out.device != x.device:
         raise TypeError(f"grad_out must be fp32 on {x.device}, got {grad_out.dtype} on "
                         f"{grad_out.device}.")
     (gamma, beta, grad_out) = _cuda_operands(x, gamma, beta, grad_out)
-    (rows, models) = (x.shape[0], x.shape[1])
-    tile = tile_rows(rows, max(1, _sm_count(x.device) // models), BACKWARD_TILE_ROWS)
+    (rows, models, channels) = x.shape
+    tile = tile_rows(rows, max(1, _sm_count(x.device) // models), BACKWARD_TILES[channels])
     lib = load_library()
-    blocks = lib.aeic_gdn_backward_blocks(rows, models, int(inverse), tile)
+    blocks = lib.aeic_gdn_backward_blocks(rows, models, channels, int(inverse), tile)
     if blocks < 0:
         _raise_on_status(lib, -blocks, "gdn_backward")
     grad_x = torch.empty_like(x) if needs[0] else None
     grad_gamma = torch.empty_like(gamma) if needs[1] else None
     grad_beta = torch.empty_like(beta) if needs[2] else None
     reduce = needs[1] or needs[2]
-    partials = (torch.empty((models, blocks, PARTIAL_FLOATS), dtype=torch.float32,
-                            device=x.device) if reduce else None)
+    partials = (torch.empty((models, blocks, channels * channels + channels),
+                            dtype=torch.float32, device=x.device) if reduce else None)
     pointer = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     status = lib.aeic_gdn_backward_f32(
         x.data_ptr(), grad_out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pointer(grad_x),
         pointer(partials), pointer(grad_gamma), pointer(grad_beta), rows, models, blocks,
-        int(inverse), tile, torch.cuda.current_stream(x.device).cuda_stream)
+        channels, int(inverse), tile, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_status(lib, status, "gdn_backward")
     forward = "igdn_f32" if inverse else "gdn_f32"
     if stacked:
         _count(forward + "_stacked_backward", (rows, models))
     else:
-        _count(forward + "_backward", rows)
+        _count(_variant(forward + "_backward", channels), rows)
     if reduce:
-        _count("gdn_backward_reduce", (rows, models))
+        _count(_variant("gdn_backward_reduce", channels), (rows, models))
     return (grad_x, grad_gamma, grad_beta)
 
 
@@ -421,17 +463,18 @@ class GdnFunction(torch.autograd.Function):
         return _backward(ctx, grad_out, stacked=False)
 
 
-def _check_stacked_operands(x, gamma, beta):
-    if x.dim() != 3 or x.shape[2] != CHANNELS:
-        raise ValueError(f"expected x of shape (rows, models, {CHANNELS}), "
+def _check_stacked_operands(x, gamma, beta, widths=(CHANNELS,)):
+    if x.dim() != 3 or x.shape[2] not in widths:
+        raise ValueError(f"expected x of shape (rows, models, {_widths_text(widths)}), "
                          f"got {tuple(x.shape)}.")
     if x.dtype != torch.float32:
         raise TypeError(f"the stacked GDN runs in fp32, got {x.dtype}.")
-    models = x.shape[1]
-    if (tuple(gamma.shape) != (models, CHANNELS, CHANNELS)
-            or tuple(beta.shape) != (models, CHANNELS)):
-        raise ValueError(f"expected gamma ({models}, 128, 128) and beta ({models}, 128), got "
-                         f"{tuple(gamma.shape)} and {tuple(beta.shape)}.")
+    (models, channels) = x.shape[1:]
+    if (tuple(gamma.shape) != (models, channels, channels)
+            or tuple(beta.shape) != (models, channels)):
+        raise ValueError(f"expected gamma ({models}, {channels}, {channels}) and beta "
+                         f"({models}, {channels}), got {tuple(gamma.shape)} and "
+                         f"{tuple(beta.shape)}.")
 
 
 def _gdn_stacked_forward(x, gamma, beta, inverse):
@@ -477,14 +520,18 @@ def _needs_grad(*tensors):
 
 
 def gdn_2d(x, gamma, beta, inverse=False):
-    """GDN (or IGDN) on a ``(rows, 128)`` fp32 or bf16 matrix.
+    """GDN (or IGDN) on a ``(rows, 128)`` fp32 or bf16 matrix, or a
+    ``(rows, 192)`` fp32 one.
 
-    Counterpart of ``gdn_pallas_2d``: gamma, ``(128, 128)`` indexed
+    Counterpart of ``gdn_pallas_2d``: gamma, ``(C, C)`` indexed
     ``[k][c]``, is rounded to x's dtype, beta stays fp32, the output has
     x's dtype. When an operand requires grad the fp32 call goes through
     :class:`GdnFunction`; a bf16 one raises.
     """
-    _check_operands(x, gamma, beta, (torch.float32, torch.bfloat16))
+    channels = _check_operands(x, gamma, beta, (torch.float32, torch.bfloat16), WIDTHS)
+    if channels != CHANNELS and x.dtype != torch.float32:
+        raise TypeError(f"gdn_2d runs bf16 at {CHANNELS} channels only, got {x.dtype} at "
+                        f"{channels}.")
     if _needs_grad(x, gamma, beta):
         if x.dtype != torch.float32:
             raise TypeError("gdn_2d is differentiable in fp32 only: a bf16 input "
@@ -495,7 +542,8 @@ def gdn_2d(x, gamma, beta, inverse=False):
 
 def gdn_stacked_2d(x, gamma, beta, inverse=False):
     """GDN (or IGDN) of M models at once: ``x`` is ``(rows, M, 128)``
-    fp32 and C-contiguous, gamma ``(M, 128, 128)``, beta ``(M, 128)``;
+    fp32 and C-contiguous, gamma ``(M, 128, 128)``, beta ``(M, 128)``
+    (128 channels only);
     ``out[:, m]`` is :func:`gdn_2d` of ``x[:, m]`` with model ``m``'s
     parameters, bit for bit on the card. Differentiable through
     :class:`GdnStackedFunction`."""
@@ -509,12 +557,13 @@ def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
     """Fused fp32 GDN/IGDN + per-channel quantiser on ``(rows, 128)``.
 
     Counterpart of ``gdn_quantize_pallas_2d``: returns
-    ``bw * round(gdn(x) / bw)``, rounding half to even. Raises when an
-    operand requires grad.
+    ``bw * round(gdn(x) / bw)``, rounding half to even. 128 channels only.
+    Raises when an operand requires grad.
     """
     _check_operands(x, gamma, beta, (torch.float32,))
     if tuple(bin_widths.shape) != (CHANNELS,):
-        raise ValueError("expected bin_widths of shape (128,).")
+        raise ValueError(f"expected bin_widths of shape ({CHANNELS},), got "
+                         f"{tuple(bin_widths.shape)}.")
     if _needs_grad(x, gamma, beta, bin_widths):
         raise RuntimeError("gdn_quantize_2d is not differentiable (the rounding has no "
                            "gradient): an operand requires grad. Train through gdn_2d "
@@ -535,7 +584,8 @@ def gdn_quantize_2d(x, gamma, beta, bin_widths, inverse=False):
 
 
 def gdn_nhwc(x_nhwc, gamma, beta, inverse=False):
-    """NHWC wrapper of :func:`gdn_2d` (counterpart of ``gdn_pallas``).
+    """NHWC wrapper of :func:`gdn_2d` (counterpart of ``gdn_pallas``), at
+    128 or 192 channels.
 
     Flattening is a view for C-contiguous NHWC input, which is what the
     channels-last convolutions of the transforms produce.

@@ -24,12 +24,12 @@ carry across unchanged. A VAE has no density, so its sidecar says
 ``"nb_itvs_per_side": null``; the reference package loads such a
 checkpoint, although its own VAE trainer fails to write one.
 
-The scale hyperprior's :class:`HyperpriorState` has no counterpart in
-the reference package; it is written under the same scheme
-(``.params['all']``, ``.opt.count``, ``.opt.mu['all']``,
-``.opt.nu['all']``, ``.step``: its parameters and Adam moments are one
-vector each, which ``train/hyperprior.py::leaves`` cuts into the named
-leaves), its kernels in this package's layouts.
+The scale hyperprior's :class:`HyperpriorState`, which Minnen et al.'s
+joint prior shares, has no counterpart in the reference package; it is
+written under the same scheme (``.params['all']``, ``.opt.count``,
+``.opt.mu['all']``, ``.opt.nu['all']``, ``.step``: its parameters and
+Adam moments are one vector each, which ``train/hyperprior.py::leaves``
+cuts into the named leaves), its kernels in this package's layouts.
 
 Many leaves share a shape (all GDN gammas are (128, 128)), so a renamed,
 missing, extra or reshaped key raises at load instead of mapping onto
@@ -47,8 +47,9 @@ from autoencoder_based_image_compression_tpu_torch.models.dense_eae import Dense
 from autoencoder_based_image_compression_tpu_torch.models.vae import VaeState
 from autoencoder_based_image_compression_tpu_torch.ops.density import DensityTable
 from autoencoder_based_image_compression_tpu_torch.train.hyperprior import (
-    SIZE as HYPERPRIOR_SIZE,
+    MODELS as HYPERPRIOR_MODELS,
     HyperpriorState,
+    size_of,
 )
 from autoencoder_based_image_compression_tpu_torch.train.state import (
     AdamState,
@@ -292,8 +293,11 @@ def hyperprior_state_from_arrays(arrays):
     on vectors of another length than the model's parameters)."""
     (groups, leaves) = _groups(arrays, "hyperprior state", (".params", ".opt.mu", ".opt.nu"),
                                (".opt.count", ".step"))
-    if any(numpy.shape(group.get("all")) != (HYPERPRIOR_SIZE,) for group in groups.values()):
-        raise ValueError(f"Not a hyperprior state: its vectors are not ({HYPERPRIOR_SIZE},).")
+    sizes = sorted(size_of(model) for (model, _, _) in HYPERPRIOR_MODELS.values())
+    shapes = {numpy.shape(group.get("all")) for group in groups.values()}
+    if len(shapes) != 1 or next(iter(shapes)) not in {(size,) for size in sizes}:
+        raise ValueError(f"Not a hyperprior state: its vectors are not one of the models' "
+                         f"lengths {sizes}.")
     ints = _tensors(leaves, numpy.int32)
     (params, mu, nu) = (_tensors(groups[prefix]) for prefix in (".params", ".opt.mu", ".opt.nu"))
     return HyperpriorState(params=params, opt=AdamState(ints[".opt.count"], mu, nu),

@@ -116,8 +116,9 @@ def phase_ms(marks, stamps):
     tiling mark to the next (``tracing.STEP_MARKS``), ``gdn_backward``
     (each ``gdn_backward_begin`` to its ``gdn_backward_end``, summed) and
     ``step`` (``step`` to ``step_end``); where the step splits its
-    forward (``tracing.FORWARD_MARKS``), ``entropy`` too (``entropy`` to
-    ``synthesis``)."""
+    forward (``tracing.FORWARD_MARKS``), each of those marks but the last
+    it gives too, to the next it gives (``entropy`` to ``synthesis``, or
+    to ``context`` and ``context`` to ``synthesis``)."""
     stamps = numpy.asarray(stamps, dtype=numpy.int64)
     tiling = [i for (i, name) in enumerate(marks) if name in tracing.STEP_MARKS]
     spans = {}
@@ -129,9 +130,9 @@ def phase_ms(marks, stamps):
     if begins:
         spans["gdn_backward"] = sum(stamps[:, j] - stamps[:, i]
                                     for (i, j) in zip(begins, ends, strict=True))
-    if set(tracing.FORWARD_MARKS) <= set(marks):
-        (entropy, synthesis) = (marks.index(name) for name in tracing.FORWARD_MARKS)
-        spans["entropy"] = stamps[:, synthesis] - stamps[:, entropy]
+    splits = [marks.index(name) for name in tracing.FORWARD_MARKS if name in marks]
+    for (a, b) in zip(splits, splits[1:]):
+        spans[marks[a]] = stamps[:, b] - stamps[:, a]
     spans["step"] = stamps[:, tiling[-1]] - stamps[:, tiling[0]]
     return {name: float(numpy.median(ns)) / 1e6 for (name, ns) in spans.items()}
 

@@ -30,10 +30,13 @@ before the step counter advances; these tile the step. Inside
 ``gdn_backward_begin`` and ``gdn_backward_end``. A density pre-fit step
 gives ``step``, ``density`` and ``step_end``. The scale hyperprior's
 step (``train/hyperprior.py``) has no density phase and splits its
-``forward`` with two marks of its own (:data:`FORWARD_MARKS`):
-``forward`` opens the analysis transform, ``entropy`` the hyper networks
-and both likelihoods, ``synthesis`` the synthesis transform, the
-distortion and the loss.
+``forward`` with marks of its own (:data:`FORWARD_MARKS`): ``forward``
+opens the analysis transform, ``entropy`` the hyper networks and both
+likelihoods, ``synthesis`` the synthesis transform, the distortion and
+the loss. Minnen et al.'s model (``models/minnen2018.py``) marks
+``context`` between the two: ``entropy`` then holds the hyper networks
+and ``z``'s likelihood, ``context`` the masked conv, the entropy
+parameters and ``y``'s likelihood.
 """
 
 import contextlib
@@ -45,8 +48,10 @@ from torch._C._profiler import _RecordFunctionFast
 # the mark, but for ``step``'s, the gather.
 STEP_MARKS = ("step", "density", "forward", "backward", "optimizer", "step_end")
 GDN_BACKWARD = ("gdn_backward_begin", "gdn_backward_end")
-# Marks inside ``forward``, which they split; they tile nothing of their own.
-FORWARD_MARKS = ("entropy", "synthesis")
+# Marks inside ``forward``, in order, which they split; they tile nothing
+# of their own. A step gives those its model has (``context`` only
+# Minnen et al.'s).
+FORWARD_MARKS = ("entropy", "context", "synthesis")
 MARKS = STEP_MARKS + GDN_BACKWARD + FORWARD_MARKS
 
 _recorder = None

@@ -32,7 +32,8 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    and three times the forward's bound; then Adam's kernel
    (``csrc/adam.cu``) at each training path's leaves (one model's 19 and
    23, the seven-model ladder's 23 stacked with three rates apart, the
-   hyperprior's one vector at its constant rate) against its plain twin,
+   hyperprior's and the joint prior's one vector at their constant rate)
+   against its plain twin,
    every output equal bit for bit, one launch a step, timed replayed and
    eager beside the twin and its bytes bound;
 3. serving: ``PipelinedCompressor`` (bf16w+, then fp32) over the 24
@@ -212,6 +213,19 @@ It builds the CUDA GDN kernels (``nvcc``) and the C++ arithmetic coder
    as many ``*_backward``, and marks ``step, forward, entropy, synthesis,
    backward, optimizer, step_end``, a replay counts none, and one eager
    ``train_step`` launches 3 + 3 and 3 + 3 backwards;
+14. Minnen et al.'s joint prior (``models/minnen2018.py``) at the same
+   batch: the fp32 GDN and IGDN kernels at 192 channels at its sites' rows
+   with a gamma that is not symmetric, against their plain versions (the
+   transposed gamma missing by 100 times) and timed against their bound,
+   the 192-channel gradient kernel against its twin, timed; then a graphed
+   epoch of 3 batches from a fresh state: its capture launches 3
+   ``gdn_f32_192`` + 3 ``igdn_f32_192`` a step at those rows, as many
+   ``*_192_backward`` and twice as many ``gdn_backward_reduce_192``, no
+   128-channel kernel, one Adam launch a step, and marks ``step, forward,
+   entropy, context, synthesis, backward, optimizer, step_end``; a replay
+   counts none, and one eager ``train_step`` launches a step's, from which
+   the kernels line's 192-channel entries (``"channels": 192``) take their
+   launches;
 8. kernel times, bounds and launch counts: one ``{"kernels": [...]}`` line;
 10. the result line ``{"ok": true, "device": {...}}``, last.
 
@@ -418,8 +432,12 @@ STACKED_SHAPES = TRAIN_SHAPES + tuple(f"{shape} x1" for shape in TRAIN_SHAPES)
 # ``<forward>_backward``, its reduction as ``REDUCE``): the forward variant
 # each differentiates. It replaces no TPU kernel.
 BACKWARD_VARIANTS = {name + "_backward": name
-                     for name in ("gdn_f32", "igdn_f32", "gdn_f32_stacked", "igdn_f32_stacked")}
+                     for name in ("gdn_f32", "igdn_f32", "gdn_f32_stacked", "igdn_f32_stacked",
+                                  "gdn_f32_192", "igdn_f32_192")}
 REDUCE = "gdn_backward_reduce"
+# The fp32 GDN of one model at 192 channels (Minnen et al.'s model), counted
+# under its own names: the 128-channel variant whose TPU kernel it ports.
+WIDE_VARIANTS = {"gdn_f32_192": "gdn_f32", "igdn_f32_192": "igdn_f32"}
 # The gradient kernel's two kernels, as a device trace names them, and the
 # calls a trace of them holds.
 (BACKWARD_KERNELS, TRACED_CALLS) = (("gdn_bwd_f32_kernel", "gdn_bwd_reduce_kernel"), 10)
@@ -468,13 +486,13 @@ def build_all():
             future.result()
     print(f"built {KERNEL_SOURCE}, {ADAM_SOURCE} and the coder in "
           f"{time.perf_counter() - t0:.1f} s")
-    # ptxas report: kernel (template arguments as mangled: Li<RM>E, then
-    # Lb<inverse>E, Lb<quantise>E), registers, spills.
+    # ptxas report: kernel (template arguments as mangled: Li<C>E, Li<RM>E,
+    # then Lb<inverse>E, Lb<quantise>E), registers, spills.
     with open(gdn_kernel.BUILD_LOG) as log:
         report = log.read()
     for entry in report.split("Compiling entry function '")[1:]:
-        kernel = re.search(r"gdn_(?:bwd_)?(?:f32|bf16)_kernelI\w+?E(?=Ev)|gdn_bwd_reduce_kernel"
-                           r"|adam_f32_kernel", entry)
+        kernel = re.search(r"gdn_(?:bwd_)?(?:f32|bf16|reduce)_kernelI\w+?E(?=Ev)"
+                           r"|adam_f32_kernel|aeic_mark_\w+", entry)
         facts = [line.split(":")[-1].strip() for line in entry.splitlines()
                  if "Used" in line or "spill" in line]
         print(f"  ptxas {kernel.group(0) if kernel else '?'}: " + "; ".join(facts))
@@ -522,15 +540,17 @@ def time_ms(fn, inputs, launches=24, repeats=7):
     return (replayed, eager)
 
 
-def bound(rows, dtype, quantize, models=1):
+def bound(rows, dtype, quantize, models=1, channels=128):
     """Least time on the card (ms) for the kernel's work and what sets it:
     each input read once and the output written once at the HBM rate, or
-    the 2 * rows * 128^2 flops of the pool at the peak rate of their type
-    (``rows`` a model, ``models`` models for the stacked kernel)."""
-    nbytes = 2 * rows * models * 128 * (4 if dtype == torch.float32 else 2)
-    nbytes += models * (128 * 128 + 128 + (128 if quantize else 0)) * 4
+    the 2 * rows * C^2 flops of the pool at the peak rate of their type
+    (``rows`` a model, ``models`` models for the stacked kernel, C the
+    ``channels``)."""
+    c = channels
+    nbytes = 2 * rows * models * c * (4 if dtype == torch.float32 else 2)
+    nbytes += models * (c * c + c + (c if quantize else 0)) * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2.0 * rows * models * 128 * 128 / PEAK_FLOPS[dtype]
+    t_ops = 2.0 * rows * models * c * c / PEAK_FLOPS[dtype]
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1278,7 +1298,7 @@ def time_backward(name, x, gamma, beta, grad_out):
     (ms, ms_eager) = time_ms(call, pairs)
     (plain_ms, _) = time_ms(
         lambda p: gk.gdn_backward_plain(p[0], gamma, beta, p[1], inverse), pairs)
-    (bound_ms, bound_by) = bound(x.shape[0], torch.float32, False, x.shape[1])
+    (bound_ms, bound_by) = bound(x.shape[0], torch.float32, False, x.shape[1], x.shape[2])
     traced = kernel_launch_ms(lambda: call((x, grad_out)), TRACED_CALLS, BACKWARD_KERNELS)
     launches = {kernel: traced.get(kernel, (None, 0))[1] for kernel in BACKWARD_KERNELS}
     split = None
@@ -1295,7 +1315,8 @@ def time_backward(name, x, gamma, beta, grad_out):
 def backward_line(name, rows, models, gaps, result):
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
 
-    tile = gk.tile_rows(rows, max(1, gk.H100_SMS // models), gk.BACKWARD_TILE_ROWS)
+    tile = gk.tile_rows(rows, max(1, gk.H100_SMS // models),
+                        gk.BACKWARD_TILES[192 if "_192" in name else 128])
     if result["split"] is None:
         traced = (f"split not measured: the trace holds {result['traced_launches']} launches "
                   f"of {TRACED_CALLS} calls")
@@ -1357,6 +1378,8 @@ def phase_gradient(kernel_results):
             raise AssertionError(f"{name}: an undifferentiable call with grad did not raise")
 
     for (seed, name) in enumerate(BACKWARD_VARIANTS):
+        if BACKWARD_VARIANTS[name] in WIDE_VARIANTS:
+            continue  # 192 channels: phase 14, at its model's sites
         stacked = BACKWARD_VARIANTS[name] in STACKED_VARIANTS
         for shape in ("ragged",) + (STACKED_SHAPES if stacked else TRAIN_SHAPES):
             rows = ROWS["T/8"] + RAGGED_EXTRA if shape == "ragged" else ROWS[shape.split()[0]]
@@ -1379,10 +1402,12 @@ def adam_cases():
     ``adam_kernel.adam_leaves``: one model's 19 (learned bin widths) and 23
     (fixed) leaves with a leading axis of 1, the seven-model ladder's 23
     stacked leaves with counts on both sides of the models' rate
-    boundaries (three rates apart), the hyperprior's one vector at its
-    constant rate. Gradients and moments drawn at a trained model's scale."""
+    boundaries (three rates apart), the hyperprior's and the joint prior's
+    one vector at their constant rate. Gradients and moments drawn at a
+    trained model's scale."""
     from autoencoder_based_image_compression_tpu_torch import constants as csts
     from autoencoder_based_image_compression_tpu_torch.cli.train_ladder import GAMMAS_DEFAULT
+    from autoencoder_based_image_compression_tpu_torch.models import minnen2018
     from autoencoder_based_image_compression_tpu_torch.models.conv_eae import (
         init_conv_eae_params,
     )
@@ -1424,6 +1449,8 @@ def adam_cases():
                                 GAMMAS_DEFAULT),
         "hyperprior training": step([(hp.SIZE,)], torch.tensor(4, dtype=torch.int32,
                                                                device=DEVICE)),
+        "joint prior training": step([(hp.size_of(minnen2018),)],
+                                     torch.tensor(4, dtype=torch.int32, device=DEVICE)),
     }
 
 
@@ -1434,7 +1461,7 @@ def phase_adam():
     models)``, two calls equal; timed replayed in a CUDA graph and eager
     beside the twin and its bound, 28 bytes an element (read p, g, mu, nu;
     write p, mu, nu) over the HBM rate. Returns the times, ``{(leaves,
-    models): result}``."""
+    models): result}`` and ``{case: result}``."""
     from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
 
     results = {}
@@ -1465,23 +1492,32 @@ def phase_adam():
               f"every output equal to the plain chain's bit for bit; kernel {ms:.4f} ms "
               f"replayed, {ms_eager:.4f} ms eager, plain chain {plain_ms:.4f} ms, bound "
               f"{1e3 * bound_ms:.2f} us (bytes), share of bound {100 * bound_ms / ms:.0f} %")
-        results[(len(leaves), models)] = {"ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
-                                          "bound_ms": bound_ms, "elements": elements}
+        results[path] = {"ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "elements": elements}
+        # The first case of a (leaves, models) speaks for it on a path not
+        # in ADAM_CASE_OF (the hyperprior's one vector, not the joint prior's).
+        results.setdefault((len(leaves), models), results[path])
     return results
+
+
+# The paths whose Adam launch has the (leaves, models) of another path's
+# and other elements: phase 2's case timed at theirs.
+ADAM_CASE_OF = {"one joint prior train_step": "joint prior training"}
 
 
 def adam_entries(paths, adam_results):
     """The kernels line's ``adam_f32`` entries: one for each ``(leaves,
     models)`` that Adam's kernel launched at on each of ``paths``, with
     its launches there as :func:`expect_adam` read them after the path's
-    run, and phase 2's times at those leaves."""
+    run, and phase 2's times at those leaves (or at the case
+    :data:`ADAM_CASE_OF` names)."""
     entries = []
     for path in paths:
         launched = ADAM_LAUNCHES.get(path)
         if not launched:
             raise AssertionError(f"adam_f32 never launched on the {path} path")
         for ((leaves, models), launches) in launched.items():
-            result = adam_results[(leaves, models)]
+            result = adam_results[ADAM_CASE_OF.get(path, (leaves, models))]
             entries.append({
                 "name": "adam_f32", "route": "cuda", "source": ADAM_SOURCE, "replaces": None,
                 "launches": launches, "max_abs_err": 0.0, "ms": result["ms"],
@@ -1492,16 +1528,17 @@ def adam_entries(paths, adam_results):
     return entries
 
 
-def asymmetric_gdn_inputs(rows, seed):
-    """``(x, gamma, beta)`` on the card: ``x`` as :func:`kernel_inputs`
-    draws it, ``gamma`` in the kernel's ``[k][c]`` layout with ``0.1`` on
-    its diagonal and ``U(0, 0.02)`` off it, each entry drawn on its own
-    (far from symmetric, as a learned one is), ``beta`` in ``[1, 1.5)``."""
+def asymmetric_gdn_inputs(rows, seed, channels=128):
+    """``(x, gamma, beta)`` on the card at ``channels``: ``x`` as
+    :func:`kernel_inputs` draws it, ``gamma`` in the kernel's ``[k][c]``
+    layout with ``0.1`` on its diagonal and ``U(0, 0.02)`` off it, each
+    entry drawn on its own (far from symmetric, as a learned one is),
+    ``beta`` in ``[1, 1.5)``."""
     generator = torch.Generator(DEVICE).manual_seed(seed)
-    x = 4.0 * torch.randn((rows, 128), device=DEVICE, generator=generator)
-    gamma = 0.02 * torch.rand((128, 128), device=DEVICE, generator=generator)
+    x = 4.0 * torch.randn((rows, channels), device=DEVICE, generator=generator)
+    gamma = 0.02 * torch.rand((channels, channels), device=DEVICE, generator=generator)
     gamma.diagonal().fill_(0.1)
-    beta = 1.0 + 0.5 * torch.rand((128,), device=DEVICE, generator=generator)
+    beta = 1.0 + 0.5 * torch.rand((channels,), device=DEVICE, generator=generator)
     return (x, gamma, beta)
 
 
@@ -1644,6 +1681,138 @@ def phase_hyperprior(kernel_results):
     return {"hyperprior training": launches}
 
 
+def phase_minnen2018(kernel_results):
+    """Minnen et al.'s joint prior: the GDN kernels at 192 channels and its
+    graphed training step.
+
+    At each site's rows (131,072, 32,768 and 8,192 at a batch of 8 crops of
+    256 x 256), with a gamma that is not symmetric: the 192-channel fp32
+    GDN and IGDN kernels against their plain versions at fp32's tolerance
+    (rtol 1e-5, atol 1e-6; the plain version on the transposed gamma must
+    miss it by :data:`TRANSPOSED_MISS` times), timed against their bound
+    (``2 * rows * 192^2`` FLOPs) into ``kernel_results``; the gradient
+    kernel against its plain twin there (:func:`check_backward`), timed
+    beside it and three times the bound. Then a fresh state of the model
+    trains through a graphed epoch of :data:`HYPERPRIOR_STEPS` batches: its
+    capture counts the warm-up step's and the capture's launches, 3 + 3 a
+    step at 192 channels and at those rows, as many backwards and twice as
+    many reductions, no 128-channel launch, one Adam launch a step over
+    the one vector, and marks every phase (``context`` among them); a
+    replay counts none; one eager ``train_step`` launches a step's. Returns
+    the path's launches, from which the kernels line's 192-channel entries
+    are built."""
+    from autoencoder_based_image_compression_tpu_torch.models import minnen2018
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import adam_kernel as ak
+    from autoencoder_based_image_compression_tpu_torch.ops.kernels import gdn_kernel as gk
+    from autoencoder_based_image_compression_tpu_torch.train import epoch_graph
+    from autoencoder_based_image_compression_tpu_torch.train import hyperprior as hp
+
+    for (seed, name) in enumerate(("gdn_f32_192", "igdn_f32_192")):
+        inverse = name.startswith("igdn")
+        for shape in HYPERPRIOR_SHAPES:
+            rows = ROWS[shape]
+            (x, gamma, beta) = asymmetric_gdn_inputs(rows, 160 + seed, channels=192)
+            got = gk.gdn_2d(x, gamma, beta, inverse=inverse)
+            expected = gk.gdn_2d_plain(x, gamma, beta, inverse=inverse)
+            transposed = gk.gdn_2d_plain(x, gamma.t().contiguous(), beta, inverse=inverse)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-6)
+            diff = (got - expected).abs()
+            max_abs = float(diff.max())
+            max_rel = float((diff / expected.abs().clamp_min(1e-30)).max())
+            miss = float(((transposed - expected).abs() / (1e-6 + 1e-5 * expected.abs())).max())
+            if miss < TRANSPOSED_MISS:
+                raise AssertionError(f"{name} at {rows} rows: the transposed gamma lands only "
+                                     f"{miss:.1f} times the tolerance away")
+            del got, expected, transposed
+            nbytes = 2 * x.numel() * x.element_size()
+            inputs = [x] + [x.clone() for _ in range(TIMING_FOOTPRINT_BYTES // nbytes)]
+            (ms, ms_eager) = time_ms(lambda t: gk.gdn_2d(t, gamma, beta, inverse=inverse),
+                                     inputs)
+            (plain_ms, _) = time_ms(lambda t: gk.gdn_2d_plain(t, gamma, beta, inverse=inverse),
+                                    inputs)
+            del inputs
+            (bound_ms, bound_by) = bound(rows, torch.float32, False, channels=192)
+            kernel_results[(name, shape)] = dict(max_abs_err=max_abs, ms=ms, ms_eager=ms_eager,
+                                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                                 bound_by=bound_by)
+            print(f"  {name:12s} gamma not symmetric, rows {rows:6d} ({shape}): max abs err "
+                  f"{max_abs:.3e}, max rel err {max_rel:.3e} [rtol 1e-5, atol 1e-6], the "
+                  f"transposed gamma {miss:.3e} times the tolerance away; tile "
+                  f"{gk.tile_rows(rows, heights=gk.FORWARD_TILES[192])}; kernel {ms:.4f} ms "
+                  f"replayed, {ms_eager:.4f} ms eager, plain {plain_ms:.4f} ms, bound "
+                  f"{1e3 * bound_ms:.2f} us ({bound_by}), share of bound "
+                  f"{100 * bound_ms / ms:.0f} %")
+            upstream = torch.randn(x.shape, device=DEVICE,
+                                   generator=torch.Generator(DEVICE).manual_seed(170 + seed))
+            backward = name + "_backward"
+            operands = (x.unsqueeze(1), gamma.unsqueeze(0), beta.unsqueeze(0),
+                        upstream.unsqueeze(1))
+            (gaps, max_abs) = check_backward(backward, *operands)
+            result = time_backward(backward, *operands)
+            kernel_results[(backward, shape)] = dict(max_gap=max(gaps), max_abs_err=max_abs,
+                                                     **result)
+            print(backward_line(backward, rows, 1, gaps, result))
+            del upstream, x, operands
+
+    fns = hp.make_hyperprior_step_fns(hp.MODELS["minnen2018"][2], minnen2018)
+    generator = torch.Generator(DEVICE).manual_seed(180)
+    state = hp.init_hyperprior_state(generator, DEVICE, minnen2018)
+    dataset = torch.randint(0, 256, (HYPERPRIOR_STEPS * HYPERPRIOR_BATCH, TRAIN_CROP,
+                                     TRAIN_CROP, 3), dtype=torch.uint8, device=DEVICE,
+                            generator=generator)
+    rows = numpy.arange(HYPERPRIOR_STEPS * HYPERPRIOR_BATCH).reshape(HYPERPRIOR_STEPS,
+                                                                     HYPERPRIOR_BATCH)
+    noise = torch.Generator(DEVICE).manual_seed(181)
+    per_step = {"gdn_f32_192": 3, "igdn_f32_192": 3, "gdn_f32_192_backward": 3,
+                "igdn_f32_192_backward": 3, "gdn_backward_reduce_192": 6}
+    site_rows = {ROWS[shape]: GRAPH_PREP_STEPS for shape in HYPERPRIOR_SHAPES}
+    captures = len(epoch_graph.CAPTURES)
+    gk.reset_launch_counts()
+    ak.reset_launch_counts()
+    state = fns["train_epoch"](state, dataset, rows, noise)
+    torch.cuda.synchronize()
+    expect_launches("joint prior graphed epoch, its capture", dict(gk.LAUNCHES),
+                    {name: GRAPH_PREP_STEPS * n for (name, n) in per_step.items()})
+    expect_adam("joint prior graphed epoch, its capture", {(1, 1): GRAPH_PREP_STEPS})
+    for name in per_step:
+        seen = {n: count for ((variant, n), count) in gk.LAUNCH_ROWS.items() if variant == name}
+        print(f"  {name} rows in the capture: {seen}")
+        if seen != ({(n, 1): 2 * count for (n, count) in site_rows.items()}
+                    if name == "gdn_backward_reduce_192" else site_rows):
+            raise AssertionError(f"joint prior capture: {name} at rows {seen}, "
+                                 f"expected {site_rows}")
+    marks = epoch_graph.CAPTURES[captures]["marks"]
+    expected_marks = (("step", "forward", "entropy", "context", "synthesis", "backward")
+                      + ("gdn_backward_begin", "gdn_backward_end") * 6
+                      + ("optimizer", "step_end"))
+    if tuple(marks) != expected_marks:
+        raise AssertionError(f"joint prior capture marks {marks}")
+    gk.reset_launch_counts()
+    ak.reset_launch_counts()
+    state = fns["train_epoch"](state, dataset, rows, noise)
+    torch.cuda.synchronize()
+    expect_launches("joint prior graphed epoch, a replay (no Python call, so no count)",
+                    dict(gk.LAUNCHES), {})
+    expect_adam("joint prior graphed epoch, a replay", {})
+    steps = 2 * HYPERPRIOR_STEPS
+    if int(state.step) != steps or not bool(torch.isfinite(state.params["all"]).all()):
+        raise AssertionError(f"joint prior: step {int(state.step)}, expected {steps}, "
+                             "or parameters not finite")
+    gk.reset_launch_counts()
+    ak.reset_launch_counts()
+    batch = dataset[torch.as_tensor(rows[0], device=DEVICE)]
+    fns["train_step"](state, batch, noise)
+    torch.cuda.synchronize()
+    launches = dict(gk.LAUNCHES)
+    expect_launches("one joint prior train_step", launches, per_step)
+    expect_adam("one joint prior train_step", {(1, 1): 1})
+    phases = fns["train_epoch"].phase_ms()
+    print("  joint prior graphed step, ms by phase: " + ", ".join(
+        f"{name} {ms:.3f}" for (name, ms) in phases.items()))
+    return {"joint prior training": launches}
+
+
 def kernel_entries(on_path, path_launches, kernel_results):
     """The kernels line's entries: each ``(name, path, shape)`` of
     ``on_path`` with its launches on that path and its times."""
@@ -1655,7 +1824,7 @@ def kernel_entries(on_path, path_launches, kernel_results):
         result = kernel_results[(name, shape)]
         forward = BACKWARD_VARIANTS.get(name, name)
         stacked = forward in STACKED_VARIANTS
-        single = STACKED_VARIANTS[forward][0] if stacked else forward
+        single = STACKED_VARIANTS[forward][0] if stacked else WIDE_VARIANTS.get(forward, forward)
         # The gradient kernel replaces no TPU kernel. Its max_abs_err is the
         # largest of its three gradients'; beside it the largest gap of a
         # gradient over that gradient's largest entry. Its launches are the
@@ -1675,7 +1844,8 @@ def kernel_entries(on_path, path_launches, kernel_results):
             "ms_eager": result["ms_eager"], "plain_ms": result["plain_ms"],
             "bound_ms": result["bound_ms"], "bound_by": result["bound_by"], "library_ms": None,
             "path": path, "rows": ROWS[shape.split()[0]],
-            "models": (1 if shape.endswith("x1") else STACKED_MODELS) if stacked else 1})
+            "models": (1 if shape.endswith("x1") else STACKED_MODELS) if stacked else 1,
+            "channels": 192 if forward in WIDE_VARIANTS else 128})
     return kernels
 
 
@@ -1683,6 +1853,12 @@ def kernel_entries(on_path, path_launches, kernel_results):
 HYPERPRIOR_ON_PATH = [(name, "hyperprior training", shape)
                       for name in ("gdn_f32", "igdn_f32", "gdn_f32_backward", "igdn_f32_backward")
                       for shape in HYPERPRIOR_SHAPES]
+# The joint prior's 192-channel entries (phase 14), their launches from
+# the path's own run.
+JOINT_ON_PATH = [(name, "joint prior training", shape)
+                 for name in ("gdn_f32_192", "igdn_f32_192", "gdn_f32_192_backward",
+                              "igdn_f32_192_backward")
+                 for shape in HYPERPRIOR_SHAPES]
 
 
 def _uniform_noise(shape, seed):
@@ -3955,6 +4131,9 @@ def main():
     print(f"phase 13: the scale hyperprior (GDN sites with a gamma not symmetric, the graphed "
           f"step) [{card}]")
     path_launches.update(phase_hyperprior(kernel_results))
+    print(f"phase 14: Minnen et al.'s joint prior (GDN kernels at 192 channels, the graphed "
+          f"step) [{card}]")
+    path_launches.update(phase_minnen2018(kernel_results))
 
     print("phase 8: kernel times")
     # Each kernel of a path, with its launches on that path (the counts
@@ -4025,13 +4204,14 @@ def main():
     # collect_stats at a batch of 20 crops, the RD studies at the serving
     # batch's, the parity harness at two 64 x 64 images'.
     on_path += campaign_entries
-    on_path += HYPERPRIOR_ON_PATH
+    on_path += HYPERPRIOR_ON_PATH + JOINT_ON_PATH
     # Adam's kernel on each training path, its launches as the path's run
-    # counted them: one train_step (phases 5, 6, 13), a sharded step and
+    # counted them: one train_step (phases 5, 6, 13, 14), a sharded step and
     # the ladder over seven shards (phase 9), the campaign's training
     # (phase 12).
     adam_paths = [f"one train_step, {tag} bin widths" for tag in ("learned", "fixed")]
-    adam_paths += ["one ladder train_step", "one hyperprior train_step"]
+    adam_paths += ["one ladder train_step", "one hyperprior train_step",
+                   "one joint prior train_step"]
     adam_paths += [f"one sharded train_step, {tag} bin widths" for tag in ("learned", "fixed")]
     adam_paths += ["ladder over seven shards", "campaign", "campaign retraining one model"]
     kernels = (kernel_entries(on_path, path_launches, kernel_results)
